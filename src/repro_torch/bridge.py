@@ -1,0 +1,76 @@
+"""Bridge between the reference's numpy view of its pytrees and the port.
+
+``config_from_dict`` rebuilds a :class:`ModelConfig` from
+``dataclasses.asdict`` of the reference's config; ``params_from_numpy`` /
+``params_to_numpy`` convert a params tree leaf by leaf, keeping every shape
+and the nested-dict layout (``embed/...``, ``blocks/pos{j}/...`` stacked
+``(n_super, ...)``, ``final_norm``), so expert migration and weight
+comparison stay one-to-one between the two packages.
+
+bfloat16 leaves arrive as numpy arrays of the ``ml_dtypes`` bfloat16 type,
+which ``torch.from_numpy`` refuses. They cross as their raw 16-bit pattern
+(``view(uint16)`` -> ``view(torch.bfloat16)``): lossless, and nothing is
+imported for it.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig, MoEConfig, SSMConfig
+
+
+def config_from_dict(d: Dict[str, Any]) -> ModelConfig:
+    """``dataclasses.asdict(cfg)`` of a reference ModelConfig -> the port's."""
+    d = dict(d)
+    d["moe"] = MoEConfig(**d["moe"])
+    d["ssm"] = SSMConfig(**d["ssm"])
+    return ModelConfig(**d)
+
+
+def tree_map(fn, tree):
+    """Apply ``fn`` to every leaf of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    return [tree]
+
+
+def _leaf_to_torch(arr, device) -> torch.Tensor:
+    # a private copy: the port updates tensors in place, and the source may
+    # be a read-only view of another framework's buffer
+    a = np.array(np.asarray(arr), order="C", copy=True)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device)
+
+
+def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().to("cpu").contiguous()
+    if t.dtype == torch.bfloat16:
+        # only a host that has the reference's numpy bfloat16 type can hold
+        # such an array; the port itself never needs it
+        bf16 = importlib.import_module("ml_dtypes").bfloat16
+        return t.view(torch.int16).numpy().view(np.uint16).view(bf16)
+    return t.numpy()
+
+
+def params_from_numpy(tree, device="cuda"):
+    """Nested dict of arrays (numpy, or anything ``np.asarray`` takes) ->
+    the same nested dict of tensors on ``device``."""
+    return tree_map(lambda a: _leaf_to_torch(a, device), tree)
+
+
+def params_to_numpy(tree):
+    """Nested dict of tensors -> the same nested dict of numpy arrays."""
+    return tree_map(_leaf_to_numpy, tree)

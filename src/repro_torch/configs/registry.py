@@ -1,0 +1,30 @@
+"""Architecture registry: ``--arch <id>`` -> ModelConfig."""
+from __future__ import annotations
+
+import importlib
+from typing import Dict, List
+
+from repro_torch.configs.base import ModelConfig
+
+# arch id -> module name in this package
+_ARCHS: Dict[str, str] = {
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+}
+
+
+def list_archs() -> List[str]:
+    return list(_ARCHS.keys())
+
+
+def _module(arch: str):
+    if arch not in _ARCHS:
+        raise KeyError(f"unknown arch {arch!r}; choose from {list_archs()}")
+    return importlib.import_module(f"repro.configs.{_ARCHS[arch]}")
+
+
+def get_config(arch: str) -> ModelConfig:
+    return _module(arch).config()
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    return _module(arch).smoke_config()

@@ -1,0 +1,84 @@
+"""Group-sized ragged grouped matmul (the MoE expert FFN hot spot).
+
+x is one ``(Np, D)`` buffer of tokens sorted by expert with block-aligned
+group starts (see ``kernels/moe_dispatch.ragged_dispatch``). Row tile n
+(``n_block`` rows) uses the weights of expert ``tile_expert[n]``; tiles past
+``padded_offsets[E]`` or wholly inside a group's alignment padding give 0,
+and so do rows past the group's real size. Output ``(Np, F)`` is f32.
+
+``moe_gmm_ragged`` launches ``csrc/moe_gmm.cu`` on a CUDA tensor and runs
+``moe_gmm_ragged_plain`` on a CPU tensor. The capacity-padded ``moe_gmm``
+of the reference is not ported yet (ROADMAP.md, Queue B).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops
+
+
+def moe_gmm_ragged_plain(x, w, tile_expert, group_sizes, padded_offsets, *,
+                         n_block: int):
+    """Same function as the kernel: one f32 product per expert over the
+    live rows of the tiles it owns."""
+    Np, D = x.shape
+    F = w.shape[-1]
+    nb = n_block
+    nt = Np // nb
+    dev = x.device
+    e = tile_expert.long()
+    row0 = torch.arange(nt, device=dev) * nb
+    start = padded_offsets.long()[e]
+    size = group_sizes.long()[e]
+    live = (row0 < padded_offsets.long()[-1]) & (row0 < start + size)
+    local = row0[:, None] + torch.arange(nb, device=dev)[None] - start[:, None]
+    keep = live[:, None] & (local < size[:, None])              # (nt, nb)
+    xb = x.reshape(nt, nb, D)
+    y = torch.zeros((nt, nb, F), dtype=torch.float32, device=dev)
+    for ex in torch.unique(e[live]).tolist():
+        sel = live & (e == ex)
+        y[sel] = xb[sel].float() @ w[ex].float()
+    y = torch.where(keep[..., None], y, torch.zeros_like(y))
+    return y.reshape(Np, F)
+
+
+def moe_gmm_ragged(x, w, tile_expert, group_sizes, padded_offsets, *,
+                   n_block: int):
+    """x (Np, D), w (E, D, F) in bf16 or f32; tile_expert (Np // n_block,),
+    group_sizes (E,), padded_offsets (E + 1,) int32 -> (Np, F) f32."""
+    if x.device.type == "cpu":
+        return moe_gmm_ragged_plain(x, w, tile_expert, group_sizes,
+                                    padded_offsets, n_block=n_block)
+    if x.device.type != "cuda":
+        raise ValueError(f"moe_gmm_ragged: no kernel for device {x.device}")
+    Np, D = x.shape
+    E, Dw, F = w.shape
+    nb = int(n_block)
+    if Dw != D:
+        raise ValueError(f"moe_gmm_ragged: x {tuple(x.shape)} vs w "
+                         f"{tuple(w.shape)}")
+    if nb <= 0 or nb % 8 or Np % nb:
+        raise ValueError(f"moe_gmm_ragged: n_block {nb} must be a positive "
+                         f"multiple of 8 dividing Np={Np}")
+    if tuple(tile_expert.shape) != (Np // nb,) \
+            or tuple(group_sizes.shape) != (E,) \
+            or tuple(padded_offsets.shape) != (E + 1,):
+        raise ValueError("moe_gmm_ragged: metadata shapes do not match "
+                         f"Np={Np}, n_block={nb}, E={E}")
+    if x.dtype not in ops.DTYPE_CODE or w.dtype != x.dtype:
+        raise TypeError(f"moe_gmm_ragged: x and w must share a dtype in "
+                        f"bf16/f32, got {x.dtype}, {w.dtype}")
+    meta = {"tile_expert": tile_expert, "group_sizes": group_sizes,
+            "padded_offsets": padded_offsets}
+    ops.check_int32("moe_gmm_ragged", meta)
+    ops.check_cuda("moe_gmm_ragged", {"x": x, "w": w, **meta}, x.device)
+    out = torch.empty((Np, F), dtype=torch.float32, device=x.device)
+    ops.launch("moe_gmm", x.data_ptr(), w.data_ptr(), tile_expert.data_ptr(),
+               group_sizes.data_ptr(), padded_offsets.data_ptr(),
+               out.data_ptr(), Np, D, F, E, nb, ops.DTYPE_CODE[x.dtype],
+               device=x.device)
+    moe_gmm_ragged.launches += 1
+    return out
+
+
+moe_gmm_ragged.launches = 0

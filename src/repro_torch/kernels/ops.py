@@ -1,0 +1,130 @@
+"""Build, load and launch the hand-written CUDA kernels in ``csrc/``.
+
+Each ``csrc/<name>.cu`` exports a plain C function ``<name>_launch`` that
+returns the launch's ``cudaError_t``. At first use the sources are compiled
+with ``nvcc`` for ``sm_90a`` into ``build/repro_torch_kernels/<hash>/`` at
+the root of the checkout, one ``nvcc`` per source, all started together and
+keyed by a hash of the sources and flags. The libraries are loaded with
+``ctypes``; pointers and the stream cross as ``c_void_p``.
+
+Nothing here runs when the module is imported: the CPU tests import it on
+hosts without ``nvcc`` or a card.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable
+
+import torch
+
+KERNELS = ("paged_decode", "moe_gmm", "source_expert_count")
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = {
+    # q, k_pages, v_pages, block_tables, ctx_lens, m_part, l_part,
+    # acc_part, out, B, Hq, Hkv, hd, ps, NB, n_split, split_tokens, scale,
+    # dtype, device, stream
+    "paged_decode": [_P] * 9 + [_I] * 8 + [_F, _I, _I, _P],
+    # x, w, tile_expert, group_sizes, padded_offsets, out, Np, D, F, E, nb,
+    # dtype, device, stream
+    "moe_gmm": [_P] * 6 + [_I] * 7 + [_P],
+    # expert_idx, source_ids, b_out, a_out, T, K, E, S, device, stream
+    "source_expert_count": [_P] * 4 + [_I] * 5 + [_P],
+}
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+_launchers: Dict[str, tuple] = {}
+build_logs: Dict[str, str] = {}     # name -> nvcc/ptxas output of its build
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                           "host with the CUDA toolkit")
+    return nvcc
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_ROOT / key / f"lib{name}.so"
+
+
+def build(names: Iterable[str] = KERNELS) -> float:
+    """Compile every library of ``names`` not built yet, one ``nvcc`` each,
+    in parallel. Returns the wall seconds spent; raises on a failed build."""
+    t0 = time.perf_counter()
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        build_logs[name] = log
+        if proc.returncode:
+            failed.append(f"{name}:\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def _launcher(name: str):
+    if name not in _launchers:
+        build()
+        lib = ctypes.CDLL(str(library_path(name)))
+        fn = getattr(lib, f"{name}_launch")
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = ctypes.c_int
+        err_str = getattr(lib, f"{name}_error_string")
+        err_str.argtypes = [ctypes.c_int]
+        err_str.restype = ctypes.c_char_p
+        _launchers[name] = (lib, fn, err_str)
+    return _launchers[name]
+
+
+def launch(name: str, *args, device: torch.device) -> None:
+    """Run ``<name>_launch(*args, device, stream)`` on the current stream of
+    ``device``; raise if it returns a CUDA error."""
+    _, fn, err_str = _launcher(name)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = fn(*args, device.index or 0, stream)
+    if err:
+        raise RuntimeError(f"{name}: CUDA error {err}: "
+                           f"{err_str(err).decode()}")
+
+
+def check_cuda(name: str, tensors: dict, device: torch.device) -> None:
+    """Every tensor on ``device`` and contiguous, or raise."""
+    for k, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{name}: {k} is on {t.device}, not {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {k} must be contiguous")
+
+
+def check_int32(name: str, tensors: dict) -> None:
+    for k, t in tensors.items():
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name}: {k} must be int32, got {t.dtype}")

@@ -1,0 +1,116 @@
+"""Shared model layers: norms, rotary embeddings, MLPs, initializers.
+
+Same functions and dtype order as the reference's ``models/layers.py``;
+tensors are PyTorch, random draws come from an explicit ``torch.Generator``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32,
+            "float16": torch.float16}[name]
+
+
+# ---------------------------------------------------------------- init utils
+def dense_init(shape, in_axis: int = 0, dtype=torch.bfloat16, *,
+               generator: torch.Generator, device="cuda"):
+    """Truncated-normal fan-in init (what LM stacks actually use)."""
+    std = 1.0 / np.sqrt(shape[in_axis])
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return (t * std).to(dtype)
+
+
+def embed_init(shape, dtype=torch.bfloat16, *, generator: torch.Generator,
+               device="cuda"):
+    t = torch.randn(shape, dtype=torch.float32, device=device,
+                    generator=generator)
+    return (t * 0.02).to(dtype)
+
+
+# ---------------------------------------------------------------- norms
+def rms_norm(x, scale, eps: float = 1e-6):
+    """RMSNorm in fp32 accumulation, cast back to input dtype."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * (1.0 + scale.float())).to(x.dtype)
+
+
+def softcap(x, cap: float):
+    """Logit soft-capping (gemma2): cap * tanh(x / cap)."""
+    if cap <= 0.0:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+# ---------------------------------------------------------------- rotary
+def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float64)
+                            / head_dim)).astype(np.float32)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., S, H, hd); positions: (..., S) int. Rotates split halves
+    (x[..., :hd/2], x[..., hd/2:]), as the reference's code does."""
+    hd = x.shape[-1]
+    freqs = torch.from_numpy(rope_frequencies(hd, theta)).to(x.device)
+    angles = positions[..., None].float() * freqs             # (..., S, hd/2)
+    sin = torch.sin(angles)[..., None, :]                     # (..., S, 1, hd/2)
+    cos = torch.cos(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------- MLP
+def init_mlp(d_model: int, d_ff: int, dtype=torch.bfloat16, *,
+             generator: torch.Generator, device="cuda"):
+    kw = dict(generator=generator, device=device)
+    return {
+        "w_gate": dense_init((d_model, d_ff), 0, dtype, **kw),
+        "w_up": dense_init((d_model, d_ff), 0, dtype, **kw),
+        "w_down": dense_init((d_ff, d_model), 0, dtype, **kw),
+    }
+
+
+def mlp(params, x):
+    """SwiGLU MLP. x: (..., D). silu runs in f32 and is cast back before
+    the product with ``up``."""
+    gate = x @ params["w_gate"]
+    up = x @ params["w_up"]
+    h = F.silu(gate.float()).to(x.dtype) * up
+    return h @ params["w_down"]
+
+
+# ---------------------------------------------------------------- embedding
+def init_embed(cfg, *, generator: torch.Generator, device="cuda"):
+    dt = torch_dtype(cfg.dtype)
+    kw = dict(generator=generator, device=device)
+    p = {"embedding": embed_init((cfg.vocab_size, cfg.d_model), dt, **kw)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = dense_init((cfg.d_model, cfg.vocab_size), 0, dt, **kw)
+    return p
+
+
+def embed_tokens(params, cfg, tokens):
+    x = params["embedding"][tokens.long()]
+    if cfg.tie_embeddings:
+        # gemma-style sqrt(d) scale, tied-embedding families only
+        x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=x.dtype,
+                             device=x.device)
+    return x
+
+
+def lm_logits(params, cfg, x):
+    """The product runs in the model dtype and is then cast to f32, so the
+    logits carry the model dtype's rounding."""
+    if cfg.tie_embeddings:
+        logits = x @ params["embedding"].T
+    else:
+        logits = x @ params["lm_head"]
+    return softcap(logits.float(), cfg.final_logit_softcap)

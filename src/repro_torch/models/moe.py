@@ -1,0 +1,176 @@
+"""Mixture-of-Experts layer with placement-aware dispatch + Gimbal statistics.
+
+* Expert weights are stored in **physical slot order**; the Gimbal expert
+  placement is a logical->physical permutation passed as a runtime input
+  (``placement``), so migrating experts is a gather of weight rows.
+* Dispatch is the sort-based dropless ragged path
+  (``kernels/moe_dispatch.py`` + the ragged GMM kernel). The reference's
+  capacity-padded path is not ported yet: ``ragged=False`` raises.
+* The layer emits the paper's two statistics along the dispatch path:
+  aggregate expert load ``B[e]`` and the source-DP-to-expert matrix
+  ``A[s, e]`` (logical expert ids), the latter from the
+  ``source_expert_count`` kernel on the sorted ids.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.moe_dispatch import (pick_row_block, ragged_combine,
+                                              ragged_dispatch, ragged_gmm)
+from repro_torch.kernels.source_expert_count import source_expert_count
+from repro_torch.models.layers import dense_init, torch_dtype
+
+PADDED_DISPATCH_TODO = ("the capacity-padded MoE dispatch is not ported yet "
+                        "(ROADMAP.md Queue B: moe_gmm and the padded "
+                        "dispatch path)")
+
+
+def init_moe(cfg, *, generator: torch.Generator, device="cuda"):
+    m = cfg.moe
+    d = cfg.d_model
+    dt = torch_dtype(cfg.dtype)
+    kw = dict(generator=generator, device=device)
+    if m.n_shared_experts:
+        raise NotImplementedError("shared experts are not ported yet "
+                                  "(ROADMAP.md Queue A: other model families)")
+    return {
+        "router": dense_init((d, m.n_experts), 0, torch.float32, **kw),
+        "w_gate": dense_init((m.n_experts, d, m.d_expert), 1, dt, **kw),
+        "w_up": dense_init((m.n_experts, d, m.d_expert), 1, dt, **kw),
+        "w_down": dense_init((m.n_experts, m.d_expert, d), 1, dt, **kw),
+    }
+
+
+def route(params, cfg, x2d):
+    """Router: x2d (..., D) -> (gates (..., K), ids (..., K), probs (..., E)).
+    f32 softmax, top-k, gates renormalised over the k chosen."""
+    logits = x2d.float() @ params["router"]
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_idx = torch.topk(probs, cfg.moe.top_k, dim=-1)
+    gates = gate_vals / torch.clamp(gate_vals.sum(dim=-1, keepdim=True),
+                                    min=1e-9)
+    return gates, expert_idx.to(torch.int32), probs
+
+
+def expert_statistics(expert_idx, n_experts: int, source_ids=None,
+                      n_sources: int = 0, token_mask=None):
+    """B[e] and A[s, e] by scatter-add (logical ids). expert_idx: (T, K).
+    token_mask: tokens counted with weight 0 are excluded."""
+    k = expert_idx.shape[-1]
+    flat = expert_idx.reshape(-1).long()
+    if token_mask is None:
+        w = torch.ones_like(flat)
+    else:
+        w = torch.repeat_interleave(token_mask.reshape(-1).long(), k)
+    counts = torch.zeros(n_experts, dtype=torch.long, device=flat.device)
+    counts.index_add_(0, flat, w)
+    stats = {"expert_counts": counts.to(torch.int32)}
+    if source_ids is not None and n_sources > 0:
+        src = torch.repeat_interleave(source_ids.reshape(-1).long(), k)
+        a = torch.zeros(n_sources * n_experts, dtype=torch.long,
+                        device=flat.device)
+        a.index_add_(0, src * n_experts + flat, w)
+        stats["source_expert"] = a.reshape(n_sources, n_experts) \
+            .to(torch.int32)
+    return stats
+
+
+def _ragged_moe_ffn(params, x, gates, logical_idx, placement, E, K, src2d,
+                    n_sources: int, collect_stats: bool, token_mask=None):
+    """Sort-based dropless expert FFN: sort physical ids -> group sizes ->
+    block-aligned gather -> ragged GMM (gate, up, down) -> gate-weighted
+    combine. Issued FLOPs scale with the real tokens per expert."""
+    B, S, D = x.shape
+    T = B * S
+    x2d = x.reshape(T, D)
+    phys = placement.long()[logical_idx.long()].reshape(T, K)
+    nb = pick_row_block(T * K, E)
+    disp = ragged_dispatch(x2d, phys, E, row_block=nb)
+
+    stats = {}
+    if collect_stats:
+        if token_mask is None:
+            # physical slot placement[l] holds logical expert l, so the
+            # logical load B[e] is a gather of the sort pass's bincount
+            stats["expert_counts"] = disp.group_sizes[placement.long()]
+        else:
+            # masked tokens still dispatch but must not register load:
+            # count the logical ids under the mask instead
+            w = torch.repeat_interleave(token_mask.reshape(T).long(), K)
+            counts = torch.zeros(E, dtype=torch.long, device=x.device)
+            counts.index_add_(0, logical_idx.reshape(T * K).long(), w)
+            stats["expert_counts"] = counts.to(torch.int32)
+        if src2d is not None and n_sources > 0:
+            # the stats kernel on the sorted ids; a masked token's source
+            # is -1, which counts nowhere
+            order = disp.sort_idx.long()
+            lg = logical_idx.reshape(T * K)[order].to(torch.int32)
+            tok = torch.div(order, K, rounding_mode="floor")
+            ss = src2d.reshape(T)[tok].to(torch.int32)
+            if token_mask is not None:
+                ss = torch.where(token_mask.reshape(T)[tok], ss,
+                                 torch.full_like(ss, -1))
+            _, a = source_expert_count(lg[:, None].contiguous(),
+                                       ss.contiguous(), n_experts=E,
+                                       n_sources=n_sources)
+            stats["source_expert"] = a
+
+    args = (disp.tile_expert, disp.group_sizes, disp.padded_offsets, nb)
+    gate = ragged_gmm(disp.xs, params["w_gate"], *args)
+    up = ragged_gmm(disp.xs, params["w_up"], *args)
+    h = (F.silu(gate) * up).to(x.dtype)       # f32 on the GMM's f32 outputs
+    ys = ragged_gmm(h, params["w_down"], *args)
+    y2d = ragged_combine(ys, disp.dest, gates.reshape(T, K))
+    return y2d.reshape(B, S, D).to(x.dtype), stats
+
+
+def moe_layer(params, cfg, x, placement, *, source_ids=None,
+              n_sources: int = 0, collect_stats: bool = True,
+              ragged: Optional[bool] = None, token_mask=None):
+    """x: (B, S, D) -> (y (B, S, D), stats dict).
+
+    placement: (E,) int32 logical->physical slot permutation.
+    source_ids: (B,) int32 DP-source id per batch row (for A[s, e]).
+    token_mask: (B, S) bool — tokens to count in the routing statistics
+    (padding rows and inactive decode lanes are False). Compute is
+    unaffected; only the reported load is masked.
+    """
+    if ragged is False:
+        raise NotImplementedError(PADDED_DISPATCH_TODO)
+    m = cfg.moe
+    B, S, D = x.shape
+    K, E = m.top_k, m.n_experts
+    gates, logical_idx, probs = route(params, cfg, x)
+    src = None
+    if source_ids is not None:
+        src = source_ids[:, None].expand(B, S)
+    y, stats = _ragged_moe_ffn(params, x, gates, logical_idx, placement, E, K,
+                               src, n_sources, collect_stats,
+                               token_mask=token_mask)
+    # router aux loss (train-time load balancing), from routing probs
+    probs_mean = probs.reshape(B * S, E).mean(dim=0)
+    frac = F.one_hot(logical_idx.reshape(B * S, K).long(), E).float() \
+        .sum(dim=1).mean(dim=0)
+    stats["aux_loss"] = E * torch.sum(probs_mean * frac)
+    return y, stats
+
+
+def migrate_expert_weights(params, old_placement, new_placement):
+    """Reorder physical expert weights when the placement changes:
+    weights[new_phys] = weights[old_phys] for each logical expert."""
+    E = old_placement.shape[0]
+    old = old_placement.long()
+    new = new_placement.long()
+    ar = torch.arange(E, device=old.device)
+    inv_new = torch.zeros_like(new)
+    inv_new[new] = ar
+    # physical slot p_new holds logical expert inv_new[p_new]; its source
+    # slot is old_placement[inv_new[p_new]]
+    src = old[inv_new]
+    out = dict(params)
+    for name in ("w_gate", "w_up", "w_down"):
+        out[name] = params[name][src.to(params[name].device)]
+    return out

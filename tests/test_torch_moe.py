@@ -1,0 +1,148 @@
+"""The port's MoE layer and ragged dispatch against the reference's.
+
+Integer outputs (dispatch layout, B, A, routing ids) must be identical;
+y within 3e-2 in bf16 and 1e-5 in f32."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import moe_dispatch as jmd
+from repro.models import moe as jmoe
+from repro_torch.bridge import params_from_numpy
+from repro_torch.kernels import moe_dispatch as tmd
+from repro_torch.models import moe as tmoe
+
+FIELDS = ("xs", "dest", "group_sizes", "group_offsets", "padded_offsets",
+          "tile_expert", "sort_idx")
+
+
+def _np(t):
+    return t.float().numpy() if t.dtype == torch.bfloat16 else t.numpy()
+
+
+@pytest.mark.parametrize("T,K,E", [(16, 2, 8), (8, 8, 128), (96, 8, 128),
+                                   (1, 2, 8)])
+def test_ragged_dispatch_is_integer_identical(T, K, E):
+    rng = np.random.default_rng(T + E)
+    x = rng.normal(size=(T, 32)).astype(np.float32)
+    # skewed routing: repeated experts exercise the stable sort
+    ids = rng.integers(0, max(E // 4, 2), size=(T, K)).astype(np.int32)
+    nb = jmd.pick_row_block(T * K, E)
+    assert tmd.pick_row_block(T * K, E) == nb
+    assert tmd.padded_rows(T * K, E, nb) == jmd.padded_rows(T * K, E, nb)
+    jd = jmd.ragged_dispatch(jnp.asarray(x), jnp.asarray(ids), E,
+                             row_block=nb)
+    td = tmd.ragged_dispatch(torch.from_numpy(x), torch.from_numpy(ids), E,
+                             row_block=nb)
+    assert td.row_block == jd.row_block
+    for f in FIELDS:
+        a, b = getattr(td, f), np.asarray(getattr(jd, f))
+        if f != "xs":
+            assert a.dtype == torch.int32, f
+        assert tuple(a.shape) == b.shape, f
+        np.testing.assert_array_equal(_np(a), b, err_msg=f)
+
+
+def test_ragged_combine():
+    rng = np.random.default_rng(1)
+    ys = rng.normal(size=(24, 6)).astype(np.float32)
+    dest = rng.permutation(24)[:10].astype(np.int32)
+    gates = rng.random(size=(5, 2)).astype(np.float32)
+    out = tmd.ragged_combine(torch.from_numpy(ys), torch.from_numpy(dest),
+                             torch.from_numpy(gates))
+    ref = jmd.ragged_combine(jnp.asarray(ys), jnp.asarray(dest),
+                             jnp.asarray(gates))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-6,
+                               atol=1e-6)
+
+
+def _layer_case(cfg, params, dtype, seed):
+    rng = np.random.default_rng(seed)
+    moe_p = jax.tree.map(lambda a: a[0], params["blocks"]["pos0"]["moe"])
+    B, S, E = 3, 5, cfg.moe.n_experts
+    x = jnp.asarray(rng.normal(size=(B, S, cfg.d_model)), jnp.dtype(dtype))
+    placement = rng.permutation(E).astype(np.int32)
+    src = np.array([0, 1, 1], np.int32)
+    mask = rng.random(size=(B, S)) < 0.7
+    return moe_p, x, placement, src, mask
+
+
+@pytest.mark.parametrize("dtype,tol", [("bfloat16", 3e-2), ("float32", 1e-5)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_moe_layer_matches_reference(tiny_model, dtype, tol, masked):
+    cfg, params = tiny_model
+    cfg = dataclasses.replace(cfg, dtype=dtype)
+    moe_p, x, placement, src, mask = _layer_case(cfg, params, dtype, 2)
+    moe_p = jax.tree.map(
+        lambda a: a.astype(jnp.dtype(dtype)) if a.ndim == 3 else a, moe_p)
+    m = mask if masked else None
+    yj, sj = jmoe.moe_layer(moe_p, cfg, x, jnp.asarray(placement),
+                            source_ids=jnp.asarray(src), n_sources=2,
+                            token_mask=None if m is None else jnp.asarray(m))
+    yt, st = tmoe.moe_layer(
+        params_from_numpy(moe_p, device="cpu"), cfg,
+        params_from_numpy(np.asarray(x), device="cpu"),
+        torch.from_numpy(placement), source_ids=torch.from_numpy(src),
+        n_sources=2, token_mask=None if m is None else torch.from_numpy(m))
+    assert yt.dtype == params_from_numpy(np.asarray(x), device="cpu").dtype
+    np.testing.assert_allclose(yt.float().numpy(), np.asarray(yj, np.float32),
+                               rtol=tol, atol=tol)
+    for k in ("expert_counts", "source_expert"):
+        assert st[k].dtype == torch.int32
+        np.testing.assert_array_equal(st[k].numpy(), np.asarray(sj[k]),
+                                      err_msg=k)
+    np.testing.assert_allclose(float(st["aux_loss"]), float(sj["aux_loss"]),
+                               rtol=1e-5)
+    if masked:
+        assert int(st["expert_counts"].sum()) == int(mask.sum()) * \
+            cfg.moe.top_k
+
+
+def test_route_matches_reference(tiny_model):
+    cfg, params = tiny_model
+    moe_p = jax.tree.map(lambda a: a[0], params["blocks"]["pos0"]["moe"])
+    x = np.random.default_rng(3).normal(size=(12, cfg.d_model)) \
+        .astype(np.float32)
+    gj, ij, pj = jmoe.route(moe_p, cfg, jnp.asarray(x))
+    gt, it, pt = tmoe.route(params_from_numpy(moe_p, device="cpu"), cfg,
+                            torch.from_numpy(x))
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+    np.testing.assert_allclose(gt.numpy(), np.asarray(gj), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(pt.numpy(), np.asarray(pj), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_expert_statistics_match_reference():
+    rng = np.random.default_rng(4)
+    ids = rng.integers(0, 8, size=(20, 2)).astype(np.int32)
+    src = rng.integers(0, 3, size=(20,)).astype(np.int32)
+    mask = rng.random(size=(20,)) < 0.5
+    sj = jmoe.expert_statistics(jnp.asarray(ids), 8, jnp.asarray(src), 3,
+                                token_mask=jnp.asarray(mask))
+    st = tmoe.expert_statistics(torch.from_numpy(ids), 8,
+                                torch.from_numpy(src), 3,
+                                token_mask=torch.from_numpy(mask))
+    for k in sj:
+        np.testing.assert_array_equal(st[k].numpy(), np.asarray(sj[k]))
+
+
+def test_migrate_expert_weights_is_exact(tiny_model):
+    cfg, params = tiny_model
+    moe_p = jax.tree.map(lambda a: a[0], params["blocks"]["pos0"]["moe"])
+    E = cfg.moe.n_experts
+    rng = np.random.default_rng(5)
+    old = rng.permutation(E).astype(np.int32)
+    new = rng.permutation(E).astype(np.int32)
+    mj = jmoe.migrate_expert_weights(moe_p, jnp.asarray(old),
+                                     jnp.asarray(new))
+    mt = tmoe.migrate_expert_weights(params_from_numpy(moe_p, device="cpu"),
+                                     torch.from_numpy(old),
+                                     torch.from_numpy(new))
+    for k in ("w_gate", "w_up", "w_down", "router"):
+        np.testing.assert_array_equal(_np(mt[k]), np.asarray(mj[k],
+                                                             np.float32))
