@@ -1,18 +1,22 @@
 // Paged flash decode: one new token per request against a paged KV pool.
 //
 // Replaces: src/repro/kernels/paged_decode.py::_kernel (paged_decode_pallas),
-// the fp-page variant (int8 pages are not served by this kernel yet).
+// both variants: pages in the query's type, and int8 pages with per-row f32
+// scales (P, ps, Hkv), dequantized on read (kernels/kv_pack.py layout).
 //
 // Computes, for request b and query head (h, g) of KV head h:
 //   out = softmax(q . K[0:ctx] / sqrt(hd)) . V[0:ctx]
 // where token t of the request lives at page block_tables[b, t / ps], slot
 // t % ps. Scores, running max, running sum and the accumulator are f32; the
-// output is cast to the input type. ctx_lens[b] == 0 gives exact zeros.
+// output is cast to the input type. ctx_lens[b] == 0 gives exact zeros. On
+// int8 pages each K/V value is dequantized in f32 as float(v) * scale[page,
+// slot, head] before it is staged, as the reference does.
 //
 // Bound on an H100: the bytes of K and V of the live tokens. At Hkv=4,
 // hd=128 in bf16 that is 2 KB per token and layer, against 2 * G = 16 flops
 // per K/V element read: far below the ~295 flops per byte at which the
-// tensor cores become the limit.
+// tensor cores become the limit. Int8 pages halve those bytes (plus 4 bytes
+// of scale per row and head).
 //
 // Design (split-KV flash decoding, two launches on one stream):
 //  1. partial pass, one block per (request, KV head, split_tokens slice of
@@ -34,6 +38,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int TILE = 32;       // tokens staged per step
@@ -41,6 +47,7 @@ constexpr int THREADS = 256;
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
@@ -61,16 +68,20 @@ __device__ __forceinline__ void unpack16(const uint4& raw, float* dst) {
   for (int i = 0; i < 16 / (int)sizeof(T); ++i) dst[i] = to_f(v[i]);
 }
 
-template <typename T>
+// T: query/output type; TP: page type (T, or int8_t with scales ksc/vsc)
+template <typename T, typename TP>
 __global__ void __launch_bounds__(THREADS)
-paged_decode_partial(const T* __restrict__ q, const T* __restrict__ kp,
-                     const T* __restrict__ vp, const int* __restrict__ bt,
+paged_decode_partial(const T* __restrict__ q, const TP* __restrict__ kp,
+                     const TP* __restrict__ vp,
+                     const float* __restrict__ ksc,
+                     const float* __restrict__ vsc, const int* __restrict__ bt,
                      const int* __restrict__ ctx_lens,
                      float* __restrict__ m_part, float* __restrict__ l_part,
                      float* __restrict__ acc_part, int Hq, int Hkv, int hd,
                      int ps, int NB, int n_split, int split_tokens,
                      float scale) {
-  constexpr int VEC = 16 / sizeof(T);
+  constexpr int VEC = 16 / sizeof(TP);
+  constexpr bool QUANT = std::is_same<TP, int8_t>::value;
   const int b = blockIdx.x, h = blockIdx.y, split = blockIdx.z;
   const int tid = threadIdx.x;
   const int G = Hq / Hkv;
@@ -113,12 +124,21 @@ paged_decode_partial(const T* __restrict__ q, const T* __restrict__ kp,
       const int t = i / row_vecs, c = i - t * row_vecs;
       const int pos = t0 + t;
       const size_t page = (size_t)pages[pos / ps - blk0];
-      const size_t off = ((page * ps + pos % ps) * Hkv + h) * hd + c * VEC;
+      const size_t row = (page * ps + pos % ps) * Hkv + h;
+      const size_t off = row * hd + c * VEC;
       const uint4 kraw = *reinterpret_cast<const uint4*>(kp + off);
       const uint4 vraw = *reinterpret_cast<const uint4*>(vp + off);
       float kf[VEC], vf[VEC];
-      unpack16<T>(kraw, kf);
-      unpack16<T>(vraw, vf);
+      unpack16<TP>(kraw, kf);
+      unpack16<TP>(vraw, vf);
+      if constexpr (QUANT) {
+        const float k_scale = ksc[row], v_scale = vsc[row];
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          kf[j] *= k_scale;
+          vf[j] *= v_scale;
+        }
+      }
 #pragma unroll
       for (int j = 0; j < VEC; ++j) {
         ks[t * ks_ld + c * VEC + j] = kf[j];
@@ -202,9 +222,10 @@ __global__ void paged_decode_combine(const float* __restrict__ m_part,
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* kp, const void* vp, const void* bt,
-           const void* ctx, void* m_part, void* l_part, void* acc_part,
+template <typename T, typename TP>
+int launch(const void* q, const void* kp, const void* vp, const void* ksc,
+           const void* vsc, const void* bt, const void* ctx, void* m_part,
+           void* l_part, void* acc_part,
            void* out, int B, int Hq, int Hkv, int hd, int ps, int NB,
            int n_split, int split_tokens, float scale,
            cudaStream_t stream) {
@@ -215,13 +236,16 @@ int launch(const void* q, const void* kp, const void* vp, const void* bt,
       sizeof(int) * (split_tokens / ps + 2);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        paged_decode_partial<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        paged_decode_partial<T, TP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  paged_decode_partial<T><<<dim3(B, Hkv, n_split), THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), static_cast<const int*>(bt),
+  paged_decode_partial<T, TP>
+      <<<dim3(B, Hkv, n_split), THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const TP*>(kp),
+      static_cast<const TP*>(vp), static_cast<const float*>(ksc),
+      static_cast<const float*>(vsc), static_cast<const int*>(bt),
       static_cast<const int*>(ctx), static_cast<float*>(m_part),
       static_cast<float*>(l_part), static_cast<float*>(acc_part), Hq, Hkv,
       hd, ps, NB, n_split, split_tokens, scale);
@@ -236,14 +260,17 @@ int launch(const void* q, const void* kp, const void* vp, const void* bt,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Block z of the partial pass covers
+// dtype (of q and the output): 0 = float32, 1 = bfloat16. The pages are
+// of that type when k_scales and v_scales are null, and int8 with f32
+// scales (P, ps, Hkv) when they are not. Block z of the partial pass covers
 // context tokens [z * split_tokens, (z + 1) * split_tokens), split_tokens a
 // positive multiple of TILE; m_part/l_part (B, Hq, n_split) and acc_part
 // (B, Hq, n_split, hd) are f32 scratch with n_split * split_tokens >=
-// NB * ps. hd * sizeof(T) must be a multiple of 16 and the pages 16-byte
-// aligned. Returns the cudaError_t of the launches.
+// NB * ps. hd * sizeof(page type) must be a multiple of 16 and the pages
+// 16-byte aligned. Returns the cudaError_t of the launches.
 extern "C" int paged_decode_launch(const void* q, const void* k_pages,
-                                   const void* v_pages,
+                                   const void* v_pages, const void* k_scales,
+                                   const void* v_scales,
                                    const void* block_tables,
                                    const void* ctx_lens, void* m_part,
                                    void* l_part, void* acc_part, void* out,
@@ -257,14 +284,20 @@ extern "C" int paged_decode_launch(const void* q, const void* k_pages,
       (long long)n_split * split_tokens < (long long)NB * ps)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
+  if ((k_scales == nullptr) != (v_scales == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool quant = k_scales != nullptr;
+#define PAGED_DECODE_ARGS                                                   \
+  q, k_pages, v_pages, k_scales, v_scales, block_tables, ctx_lens, m_part, \
+      l_part, acc_part, out, B, Hq, Hkv, hd, ps, NB, n_split, split_tokens, \
+      scale, s
   if (dtype == 0)
-    return launch<float>(q, k_pages, v_pages, block_tables, ctx_lens, m_part,
-                         l_part, acc_part, out, B, Hq, Hkv, hd, ps, NB,
-                         n_split, split_tokens, scale, s);
-  return launch<__nv_bfloat16>(q, k_pages, v_pages, block_tables, ctx_lens,
-                               m_part, l_part, acc_part, out, B, Hq, Hkv, hd,
-                               ps, NB, n_split, split_tokens, scale, s);
+    return quant ? launch<float, int8_t>(PAGED_DECODE_ARGS)
+                 : launch<float, float>(PAGED_DECODE_ARGS);
+  return quant ? launch<__nv_bfloat16, int8_t>(PAGED_DECODE_ARGS)
+               : launch<__nv_bfloat16, __nv_bfloat16>(PAGED_DECODE_ARGS);
+#undef PAGED_DECODE_ARGS
 }
 
 extern "C" const char* paged_decode_error_string(int err) {

@@ -1,10 +1,11 @@
 """Build, load and launch the hand-written CUDA kernels in ``csrc/``.
 
-Each ``csrc/<name>.cu`` exports a plain C function ``<name>_launch`` that
-returns the launch's ``cudaError_t``. At first use the sources are compiled
-with ``nvcc`` for ``sm_90a`` into ``build/repro_torch_kernels/<hash>/`` at
-the root of the checkout, one ``nvcc`` per source, all started together and
-keyed by a hash of the sources and flags. The libraries are loaded with
+Each ``csrc/<name>.cu`` exports plain C entry points ``<entry>_launch``
+that return the launch's ``cudaError_t``, and ``<name>_error_string``. At
+first use the sources are compiled with ``nvcc`` for ``sm_90a`` into
+``build/repro_torch_kernels/<hash>/`` at the root of the checkout, one
+``nvcc`` per source, all started together and keyed by a hash of the
+sources and flags. The libraries are loaded with
 ``ctypes``; pointers and the stream cross as ``c_void_p``.
 
 Nothing here runs when the module is imported: the CPU tests import it on
@@ -23,26 +24,34 @@ from typing import Dict, Iterable
 
 import torch
 
-KERNELS = ("paged_decode", "moe_gmm", "source_expert_count")
+KERNELS = ("paged_decode", "moe_gmm", "source_expert_count", "kv_pack")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = {
-    # q, k_pages, v_pages, block_tables, ctx_lens, m_part, l_part,
-    # acc_part, out, B, Hq, Hkv, hd, ps, NB, n_split, split_tokens, scale,
-    # dtype, device, stream
-    "paged_decode": [_P] * 9 + [_I] * 8 + [_F, _I, _I, _P],
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
+# entry point -> (library it lives in, argtypes)
+_ENTRIES = {
+    # q, k_pages, v_pages, k_scales, v_scales (null for fp pages),
+    # block_tables, ctx_lens, m_part, l_part, acc_part, out, B, Hq, Hkv, hd,
+    # ps, NB, n_split, split_tokens, scale, dtype, device, stream
+    "paged_decode": ("paged_decode", [_P] * 11 + [_I] * 8 + [_F, _I, _I, _P]),
     # x, w, tile_expert, group_sizes, padded_offsets, out, Np, D, F, E, nb,
     # dtype, device, stream
-    "moe_gmm": [_P] * 6 + [_I] * 7 + [_P],
+    "moe_gmm": ("moe_gmm", [_P] * 6 + [_I] * 7 + [_P]),
     # expert_idx, source_ids, b_out, a_out, T, K, E, S, device, stream
-    "source_expert_count": [_P] * 4 + [_I] * 5 + [_P],
+    "source_expert_count": ("source_expert_count",
+                            [_P] * 4 + [_I] * 5 + [_P]),
+    # x, q_out, s_out, rows, hd, dtype, device, stream
+    "pack_kv": ("kv_pack", [_P] * 3 + [_L] + [_I] * 3 + [_P]),
+    # q, s, out, rows, hd, dtype, device, stream
+    "unpack_kv": ("kv_pack", [_P] * 3 + [_L] + [_I] * 3 + [_P]),
 }
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
+_libraries: Dict[str, ctypes.CDLL] = {}
 _launchers: Dict[str, tuple] = {}
 build_logs: Dict[str, str] = {}     # name -> nvcc/ptxas output of its build
 
@@ -90,28 +99,31 @@ def build(names: Iterable[str] = KERNELS) -> float:
     return time.perf_counter() - t0
 
 
-def _launcher(name: str):
-    if name not in _launchers:
-        build()
-        lib = ctypes.CDLL(str(library_path(name)))
-        fn = getattr(lib, f"{name}_launch")
-        fn.argtypes = _ARGTYPES[name]
+def _launcher(entry: str):
+    if entry not in _launchers:
+        name, argtypes = _ENTRIES[entry]
+        if name not in _libraries:
+            build()
+            _libraries[name] = ctypes.CDLL(str(library_path(name)))
+        lib = _libraries[name]
+        fn = getattr(lib, f"{entry}_launch")
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         err_str = getattr(lib, f"{name}_error_string")
         err_str.argtypes = [ctypes.c_int]
         err_str.restype = ctypes.c_char_p
-        _launchers[name] = (lib, fn, err_str)
-    return _launchers[name]
+        _launchers[entry] = (fn, err_str)
+    return _launchers[entry]
 
 
-def launch(name: str, *args, device: torch.device) -> None:
-    """Run ``<name>_launch(*args, device, stream)`` on the current stream of
-    ``device``; raise if it returns a CUDA error."""
-    _, fn, err_str = _launcher(name)
+def launch(entry: str, *args, device: torch.device) -> None:
+    """Run ``<entry>_launch(*args, device, stream)`` on the current stream
+    of ``device``; raise if it returns a CUDA error."""
+    fn, err_str = _launcher(entry)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = fn(*args, device.index or 0, stream)
     if err:
-        raise RuntimeError(f"{name}: CUDA error {err}: "
+        raise RuntimeError(f"{entry}: CUDA error {err}: "
                            f"{err_str(err).decode()}")
 
 

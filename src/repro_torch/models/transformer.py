@@ -26,16 +26,13 @@ import torch
 
 from repro_torch.bridge import tree_leaves, tree_map
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.kv_pack import pack_kv, unpack_kv
 from repro_torch.kernels.paged_decode import paged_decode
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import flash_attention
 from repro_torch.models.layers import (apply_rope, dense_init, embed_tokens,
                                        init_embed, init_mlp, lm_logits, mlp,
                                        rms_norm, torch_dtype)
-
-INT8_PAGES_TODO = ("int8 KV pages are the next slice of the port (ROADMAP.md "
-                   "Queue B: pack_kv and paged decode's int8 variant)")
-
 
 @dataclasses.dataclass(frozen=True)
 class LayerDesc:
@@ -141,7 +138,12 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
     """Physical KV page pool: per super-block position k/v tensors of shape
     (n_super, n_pages, page_size, Hkv, hd). Page 0 is the reserved garbage
     page (see serving/paged.py): allocators hand out ids >= 1, and masked
-    writes land in page 0. ``kv_dtype="auto"`` keeps the model dtype."""
+    writes land in page 0. ``kv_dtype="auto"`` keeps the model dtype.
+
+    ``kv_dtype="int8"`` stores quantized pages plus per-(token, head) f32
+    ``k_scale``/``v_scale`` leaves (n_super, n_pages, page_size, Hkv)
+    (kernels/kv_pack.py): the same pool bytes hold ``2*hd/(hd+4)`` times the
+    tokens of a 2-byte layout; attention reads dequantize on the fly."""
     if cfg.family == "hybrid":
         raise NotImplementedError("paged KV: mamba state is not paged")
     if cfg.local_global_ratio > 0 or cfg.sliding_window > 0:
@@ -150,21 +152,30 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
     if cfg.attn_logit_softcap:
         raise NotImplementedError("paged KV: attn_logit_softcap "
                                   "unsupported in paged_decode")
-    if kv_dtype == "int8":
-        raise NotImplementedError(INT8_PAGES_TODO)
-    if kv_dtype != "auto":
+    if kv_dtype not in ("auto", "int8"):
         raise ValueError(f"kv_dtype {kv_dtype!r}: expected 'auto' or 'int8'")
     ns = n_super_blocks(cfg)
-    dt = torch_dtype(cfg.dtype)
+    quant = kv_dtype == "int8"
+    dt = torch.int8 if quant else torch_dtype(cfg.dtype)
     shape = (ns, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
-    return {f"pos{j}": {"k": torch.zeros(shape, dtype=dt, device=device),
-                        "v": torch.zeros(shape, dtype=dt, device=device)}
-            for j in range(len(period_descriptors(cfg)))}
+    out = {}
+    for j in range(len(period_descriptors(cfg))):
+        c = {"k": torch.zeros(shape, dtype=dt, device=device),
+             "v": torch.zeros(shape, dtype=dt, device=device)}
+        if quant:
+            sshape = shape[:-1]
+            c["k_scale"] = torch.zeros(sshape, dtype=torch.float32,
+                                       device=device)
+            c["v_scale"] = torch.zeros(sshape, dtype=torch.float32,
+                                       device=device)
+        out[f"pos{j}"] = c
+    return out
 
 
 def paged_cache_page_nbytes(pages) -> int:
-    """Device bytes per page across every super-block slice and leaf: the
-    transfer size one swapped page costs the host tier."""
+    """Device bytes per page across every super-block slice and leaf
+    (values and, on int8 pools, scales): the transfer size one swapped page
+    costs the host tier."""
     return sum(t.numel() * t.element_size() // t.shape[1]
                for t in tree_leaves(pages))
 
@@ -237,6 +248,11 @@ def _paged_attention(cfg, q, k, v, positions, cache, mode, paged):
     pool. paged: {"block_tables" (B, NB), "valid" (B, S) rows to write,
     "ctx_lens" (B,) live tokens incl. this chunk, "decode_mask" (B,) or
     None}. Invalid rows write to garbage page 0 and attend to nothing.
+
+    int8 pools (``"k_scale" in cache``) quantize each written row through
+    ``pack_kv`` and scatter the per-(token, head) scales alongside; reads
+    dequantize on the fly (in the kernel for decode, through ``unpack_kv``
+    after the gather for chunked prefill).
     """
     B, S = positions.shape
     pk, pv = cache["k"], cache["v"]
@@ -252,17 +268,32 @@ def _paged_attention(cfg, q, k, v, positions, cache, mode, paged):
     page = torch.where(valid, bt.long()[bidx, blk], zero).reshape(-1)
     off = torch.where(valid, (positions % ps).long(), zero).reshape(-1)
     Hkv, hd = pk.shape[2], pk.shape[3]
-    pk[page, off] = k.reshape(B * S, Hkv, hd).to(pk.dtype)
-    pv[page, off] = v.reshape(B * S, Hkv, hd).to(pv.dtype)
+    quant = "k_scale" in cache
+    cks = cvs = None
+    if quant:
+        kw, ksc = pack_kv(k)
+        vw, vsc = pack_kv(v)
+        cks, cvs = cache["k_scale"], cache["v_scale"]
+        cks[page, off] = ksc.reshape(B * S, Hkv)
+        cvs[page, off] = vsc.reshape(B * S, Hkv)
+    else:
+        kw, vw = k, v
+    pk[page, off] = kw.reshape(B * S, Hkv, hd).to(pk.dtype)
+    pv[page, off] = vw.reshape(B * S, Hkv, hd).to(pv.dtype)
 
     if mode == "paged_decode":                         # S == 1, kernel path
-        out = paged_decode(q[:, 0].contiguous(), pk, pv, bt, ctx)
+        out = paged_decode(q[:, 0].contiguous(), pk, pv, bt, ctx,
+                           k_scales=cks, v_scales=cvs)
         return out[:, None], cache
     # chunked prefill: dense gather of the request's pages (prior context +
     # the chunk just written), causal mask via absolute positions
     L = NB * ps
-    kd = pk[bt.long()].reshape(B, L, Hkv, hd)
-    vd = pv[bt.long()].reshape(B, L, Hkv, hd)
+    btl = bt.long()
+    kd = pk[btl].reshape(B, L, Hkv, hd)
+    vd = pv[btl].reshape(B, L, Hkv, hd)
+    if quant:                                          # dequant the gather
+        kd = unpack_kv(kd, cks[btl].reshape(B, L, Hkv), q.dtype)
+        vd = unpack_kv(vd, cvs[btl].reshape(B, L, Hkv), q.dtype)
     kpos = torch.arange(L, dtype=torch.int32, device=q.device)[None]
     kpos = torch.where(kpos < ctx[:, None], kpos, torch.full_like(kpos, -1))
     out = flash_attention(q, kd, vd, q_pos=positions, k_pos=kpos,
@@ -275,7 +306,8 @@ def _paged_attention(cfg, q, k, v, positions, cache, mode, paged):
         # weights to the KV dtype before the value product while the decode
         # kernel keeps them f32, so recompute those rows' position-0 output
         # through the decode kernel and select per row.
-        dec = paged_decode(q[:, 0].contiguous(), pk, pv, bt, ctx)
+        dec = paged_decode(q[:, 0].contiguous(), pk, pv, bt, ctx,
+                           k_scales=cks, v_scales=cvs)
         out[:, 0] = torch.where(dm[:, None, None], dec, out[:, 0])
     return out, cache
 

@@ -8,7 +8,10 @@ from repro_torch.serving.paged import (GARBAGE_PAGE, PagedBlockAllocator,
 from repro_torch.serving.paged_engine import (PagedEngineConfig,
                                               PagedModelRunner,
                                               PagedRealEngine)
+from repro_torch.serving.real_cluster import (RealClusterConfig,
+                                              serve_real_cluster)
 from repro_torch.serving.request import Request, RequestState
+from repro_torch.serving.simulator import SimResult
 from repro_torch.serving.step_plan import (PlannerConfig, PrefillLane,
                                            StepPlan, StepPlanner,
                                            check_plan_invariants)
@@ -18,5 +21,6 @@ __all__ = ["CostModelConfig", "EngineCostModel", "SwapCostConfig",
            "TieredSharedAllocator", "BlockPool", "SlotAllocator",
            "GARBAGE_PAGE", "PagedBlockAllocator", "SharedPagedAllocator",
            "PagedEngineConfig", "PagedModelRunner", "PagedRealEngine",
+           "RealClusterConfig", "serve_real_cluster", "SimResult",
            "Request", "RequestState", "PlannerConfig", "PrefillLane",
            "StepPlan", "StepPlanner", "check_plan_invariants"]

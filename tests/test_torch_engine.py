@@ -2,7 +2,7 @@
 requests on a float32 twin of the test model: same finish order, same token
 streams, same window statistics, same padding counters. Split steps, mixed
 steps, a pool tight enough to preempt (recompute, or swap to the host KV
-tier), and the prefix cache with copy-on-write pages."""
+tier), the prefix cache with copy-on-write pages, and int8 KV pages."""
 import dataclasses
 
 import jax
@@ -36,11 +36,19 @@ def twin():
     jp = build_model(cfg).init(jax.random.PRNGKey(0))
     tcfg = config_from_dict(dataclasses.asdict(cfg))
     tp = params_from_numpy(jp, device="cpu")
-    # one runner per package for the whole module: the reference's jit
-    # caches are shared by every case
-    jr = JRunner(cfg, jp, JConfig(**RUNNER, attn_backend="xla"), n_sources=2)
-    tr = TRunner(tcfg, tp, TConfig(**RUNNER, device="cpu"), n_sources=2)
-    return cfg, jp, jr, tcfg, tp, tr
+    # one runner per package and KV dtype for the whole module: the
+    # reference's jit caches are shared by every case
+    runners = {}
+
+    def runner(kv_dtype):
+        if kv_dtype not in runners:
+            runners[kv_dtype] = (
+                JRunner(cfg, jp, JConfig(**RUNNER, attn_backend="xla",
+                                         kv_dtype=kv_dtype), n_sources=2),
+                TRunner(tcfg, tp, TConfig(**RUNNER, device="cpu",
+                                          kv_dtype=kv_dtype), n_sources=2))
+        return runners[kv_dtype]
+    return cfg, jp, tcfg, tp, runner
 
 
 def _requests(cls, vocab, shared_prefix, seed=0):
@@ -90,9 +98,13 @@ def _serve(engine_cls, cfg_cls, req_cls, tier_cls, cfg, params, runner,
     dict(n_pages=9),                          # tight pool: preempt+recompute
     dict(n_pages=9, swap_policy="swap"),      # tight pool: swap to host
     dict(prefix_sharing=True),                # radix prefix cache + COW
+    dict(kv_dtype="int8"),                    # int8 pages + f32 scales
+    dict(kv_dtype="int8", n_pages=9,          # int8 pages and their scales
+         swap_policy="swap"),                 # through the host tier
 ])
 def test_engine_matches_reference(twin, case):
-    cfg, jp, jr, tcfg, tp, tr = twin
+    cfg, jp, tcfg, tp, runner = twin
+    jr, tr = runner(case.get("kv_dtype", "auto"))
     padded0 = (jr.padded_tokens_total, jr.padding_waste_tokens,
                tr.padded_tokens_total, tr.padding_waste_tokens)
     j_eng, j_reqs, j_stats = _serve(JEngine, JConfig, JRequest, JTier, cfg,

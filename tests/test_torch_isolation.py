@@ -11,19 +11,24 @@ import torch
 from repro_torch.configs import get_smoke_config, reduced
 from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as ttfm
-from repro_torch.serving import PagedEngineConfig, PagedModelRunner
+from repro_torch.serving import (PagedEngineConfig, PagedModelRunner,
+                                 PagedRealEngine, Request)
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 PORT = SRC / "repro_torch"
 
 
 def test_importing_the_port_loads_no_jax_and_no_reference():
+    # msgpack and zstandard are absent where the kernels run
     code = (
         "import sys\n"
         "import repro_torch.bridge, repro_torch.serving\n"
         "import repro_torch.models.transformer, repro_torch.kernels.ops\n"
+        "import repro_torch.core, repro_torch.ft\n"
+        "import repro_torch.serving.real_cluster\n"
+        "import repro_torch.kernels.kv_pack\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'repro'))\n"
+        "('jax', 'jaxlib', 'repro', 'msgpack', 'zstandard'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))
@@ -34,7 +39,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
 
 def test_no_source_file_imports_jax_or_the_reference():
     bad = re.compile(r"^\s*(import jax|from jax|from repro\.|import repro\b"
-                     r"(?!_torch))", re.M)
+                     r"(?!_torch)|import (msgpack|zstandard)|"
+                     r"from (msgpack|zstandard))", re.M)
     files = list(PORT.rglob("*.py")) + [SRC.parent / "chip_smoke.py"]
     assert len(files) > 10
     for f in files:
@@ -69,15 +75,29 @@ def test_runner_rejects_params_on_another_device():
                      n_sources=2)
 
 
-def test_int8_pages_are_not_served_yet():
+def test_int8_pages_serve_on_the_cpu():
     cfg, params = _tiny()
-    with pytest.raises(NotImplementedError, match="pack_kv"):
-        ttfm.init_paged_cache(cfg, 4, 8, kv_dtype="int8", device="cpu")
-    runner = PagedModelRunner(
-        cfg, params, PagedEngineConfig(device="cpu", kv_dtype="int8"),
-        n_sources=2)
-    with pytest.raises(NotImplementedError, match="Queue B"):
-        runner.init_pages()
+    with pytest.raises(ValueError, match="kv_dtype"):
+        ttfm.init_paged_cache(cfg, 4, 8, kv_dtype="fp8", device="cpu")
+    ecfg = PagedEngineConfig(device="cpu", kv_dtype="int8", page_size=8,
+                             n_pages=32, max_blocks_per_req=8, max_batch=4,
+                             token_budget=16, chunk_buckets=(8, 16))
+    runner = PagedModelRunner(cfg, params, ecfg, n_sources=2)
+    engine = PagedRealEngine(0, cfg, params, ecfg, runner=runner)
+    assert engine.pages["pos0"]["k"].dtype == torch.int8
+    reqs = [Request(req_id=i, prompt_len=11, max_new_tokens=4,
+                    arrival_time=0.0, prompt_tokens=list(range(3 + i, 14 + i)))
+            for i in range(3)]
+    for r in reqs:
+        engine.enqueue(r, 0.0)
+    for step in range(100):
+        if not engine.has_work:
+            break
+        engine.step(0.01 * step)
+    assert all(len(r.output_tokens) == 4 and not r.error for r in reqs)
+    assert all(0 <= t < cfg.vocab_size for r in reqs
+               for t in r.output_tokens)
+    assert engine.pages["pos0"]["k_scale"].abs().sum() > 0
 
 
 def test_padded_dispatch_is_not_served_yet():
@@ -95,6 +115,7 @@ def test_padded_dispatch_is_not_served_yet():
 
 
 def test_kernel_wrappers_refuse_other_devices():
+    from repro_torch.kernels.kv_pack import pack_kv, unpack_kv
     from repro_torch.kernels.moe_gmm import moe_gmm_ragged
     from repro_torch.kernels.paged_decode import paged_decode
     from repro_torch.kernels.source_expert_count import source_expert_count
@@ -105,3 +126,7 @@ def test_kernel_wrappers_refuse_other_devices():
         moe_gmm_ragged(m[0], m, m, m, m, n_block=8)
     with pytest.raises(ValueError, match="no kernel"):
         source_expert_count(m[0], m, n_experts=1, n_sources=1)
+    with pytest.raises(ValueError, match="no kernel"):
+        pack_kv(m)
+    with pytest.raises(ValueError, match="no kernel"):
+        unpack_kv(m.to(torch.int8), m[..., 0])

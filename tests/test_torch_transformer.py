@@ -1,7 +1,8 @@
 """The port's paged entry points against the reference's (attn_backend="xla")
 on a float32 twin of the test model: logits and every page but the garbage
 page 0 (where duplicate masked writes land in an unspecified order) within
-1e-4 after two layers, MoE statistics exact."""
+1e-4 after two layers, MoE statistics exact. On int8 pages the same bar
+holds every int8 code exactly and the f32 scales within 1e-4."""
 import dataclasses
 
 import jax
@@ -33,10 +34,12 @@ def twin():
 class Pair:
     """One page pool per package, driven call by call in lockstep."""
 
-    def __init__(self, twin):
+    def __init__(self, twin, kv_dtype="auto"):
         self.jcfg, self.jp, self.tcfg, self.tp = twin
-        self.jpages = jtfm.init_paged_cache(self.jcfg, P, PS)
-        self.tpages = ttfm.init_paged_cache(self.tcfg, P, PS, device="cpu")
+        self.jpages = jtfm.init_paged_cache(self.jcfg, P, PS,
+                                            kv_dtype=kv_dtype)
+        self.tpages = ttfm.init_paged_cache(self.tcfg, P, PS,
+                                            kv_dtype=kv_dtype, device="cpu")
 
     def prefill(self, tokens, starts, lens, bt, src, decode_mask=None):
         arrs = {"tokens": np.asarray(tokens, np.int32),
@@ -145,4 +148,26 @@ def test_mixed_step_matches_reference(twin):
     toks[0, 0] = int(logits[0].argmax())
     toks[1, :10] = new
     pair.prefill(toks, [13, 0], [1, 10], [BT[0], [6, 7, 0, 0]], [0, 1],
+                 decode_mask=[True, False])
+
+
+def test_int8_pages_match_reference(twin):
+    """Prefill, decode and a mixed step on int8 pages. Halfway, the port's
+    pool is replaced by the reference's (codes and scales through numpy),
+    so decode also runs on pages the reference wrote."""
+    pair = Pair(twin, kv_dtype="int8")
+    prompts, logits = _prefill_two(pair)
+    assert pair.tpages["pos0"]["k"].dtype == torch.int8
+    pair.tpages = params_from_numpy(
+        jax.tree.map(np.asarray, pair.jpages), device="cpu")
+    nxt = logits.argmax(-1).tolist()
+    for step in range(2):
+        logits = pair.decode(nxt, [13 + step, 21 + step], BT, [True, True],
+                             [0, 1])
+        nxt = logits.argmax(-1).tolist()
+    new = _prompts(pair.jcfg, [10], seed=1)[0]
+    toks = np.zeros((2, 16), np.int32)
+    toks[0, 0] = nxt[0]
+    toks[1, :10] = new
+    pair.prefill(toks, [15, 0], [1, 10], [BT[0], [6, 7, 0, 0]], [0, 1],
                  decode_mask=[True, False])
