@@ -10,25 +10,33 @@
 3. checks the port end to end on a small input: a float32 twin of the
    model served on the card through the kernels and on the CPU through the
    plain versions must give the same token streams and statistics, on one
-   engine pair, and through ``serve_real_cluster`` on int8 KV pages with
-   experts migrating, without and with a crash of engine 1;
+   engine pair, through ``serve_real_cluster`` on int8 KV pages with
+   experts migrating, without and with a crash of engine 1, and through
+   ``serve_real_cluster`` over two dense-cache ``RealModelEngine``s in each
+   MoE dispatch mode (ragged, capacity-padded);
 4. serves 8 requests on two ``PagedRealEngine``s that share one runner, at
    the full width of Qwen3-30B-A3B (depth cut to ``--layers``), with random
    weights from ``--seed``, and checks what comes out: every request
    finished, tokens in the vocabulary, each kernel launched, and the MoE
    statistics B and A consistent with the tokens routed;
 5. serves the same requests again under ``torch.profiler`` and prints the
-   device's busy share and the kernels that take the device time;
+   device's busy share and the kernels that take the device time (step 7
+   is profiled the same way);
 6. serves 16 requests arriving over time through ``serve_real_cluster``
    (the Gimbal control plane: Algorithm-1 dispatch, profiler, placement,
    expert migration) on two engines with int8 KV pages at the same width,
    and checks that every request finished, both engines served, experts
-   migrated on the card, and all five kernels launched;
-7. prints a ``kernels`` JSON line, then as its last line
-   ``{"ok": true, "device": {...}}``.
+   migrated on the card, and all five kernels of that path launched;
+7. serves 16 requests arriving over time through ``serve_real_cluster`` on
+   two dense-cache ``RealModelEngine``s with the capacity-padded MoE
+   dispatch at the same width (8 slots of 1024 tokens each), experts
+   migrating, and checks the same, with ``flash_decode`` and ``moe_gmm``
+   launched;
+8. prints a ``kernels`` JSON line (all seven kernels), then as its last
+   line ``{"ok": true, "device": {...}}``.
 
-The kernel launch counters are set to 0 just before each serve of steps 4
-and 6 and read just after; each serve fails if a kernel of its path was
+The kernel launch counters are set to 0 just before each serve of steps 4,
+6 and 7 and read just after; each serve fails if a kernel of its path was
 not launched.
 
 Any failure raises, and the script exits non-zero. It never runs on the
@@ -198,6 +206,85 @@ def check_gmm(timer, dtype, T, D, F, which):
             "library_ms": lib}
 
 
+def check_flash_decode(timer, dtype):
+    """The dense ring cache of a RealModelEngine at full width: 8 slots of
+    1024, rows at assorted write positions (one wrapped past the end of
+    the ring, one fully masked: exact zeros)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_plain)
+    from repro_torch.models.attention import ring_positions
+    g = torch.Generator(device="cuda").manual_seed(6)
+    B, Hq, Hkv, hd, L = 8, 32, 4, 128, 1024
+    q = torch.randn(B, Hq, hd, generator=g, device="cuda").to(dtype)
+    kc = torch.randn(B, L, Hkv, hd, generator=g, device="cuda").to(dtype)
+    vc = torch.randn(B, L, Hkv, hd, generator=g, device="cuda").to(dtype)
+    write = torch.tensor([99, 1500, 255, 600, 931, 1023, 0, 400],
+                         device="cuda")                # row 1 wrapped
+    k_pos = ring_positions(write, L)
+    q_pos = write.to(torch.int32)
+    k_pos[6] = -1                                      # row 6: no valid slot
+    out = flash_decode(q, kc, vc, k_pos, q_pos)
+    ref = flash_decode_plain(q, kc, vc, k_pos, q_pos)
+    torch.cuda.synchronize()
+    err = max_err(out, ref)
+    if not torch.isfinite(out).all() or out[6].abs().max() != 0:
+        raise AssertionError("flash_decode: non-finite output or a row with "
+                             "no valid slot that is not exactly zero")
+    valid = (k_pos >= 0) & (k_pos <= q_pos[:, None])
+    n_valid = int(valid.sum())
+    item = q.element_size()
+    nbytes = 2 * q.numel() * item + n_valid * Hkv * 2 * hd * item \
+        + k_pos.numel() * 4 + B * 4
+    ops = 4.0 * n_valid * Hq * hd
+    # the library yardstick: SDPA on the same cache, heads-first copies and
+    # the boolean mask built outside the timed call
+    q4 = q[:, :, None].contiguous()                    # (B, Hq, 1, hd)
+    k4, v4 = (t.transpose(1, 2).contiguous() for t in (kc, vc))
+    mask = valid[:, None, None, :]
+    lib = None
+    try:
+        F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                       enable_gqa=True)
+        lib = timer(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=mask, enable_gqa=True))
+    except (TypeError, RuntimeError) as exc:
+        log(f"library: scaled_dot_product_attention with enable_gqa not "
+            f"timed ({exc})")
+    return {"shape": f"B={B} Hq={Hq} Hkv={Hkv} hd={hd} L={L} ring, write "
+                     f"positions {write.tolist()}, row 6 masked, "
+                     f"{n_valid} valid slots",
+            "err": err,
+            "ms": timer(lambda: flash_decode(q, kc, vc, k_pos, q_pos)),
+            "plain_ms": timer(lambda: flash_decode_plain(q, kc, vc, k_pos,
+                                                         q_pos)),
+            "bound": bound_ms(nbytes, ops, str(dtype).split(".")[1]),
+            "library_ms": lib}
+
+
+def check_padded_gmm(timer, dtype, E, C, D, F, which):
+    from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_plain
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(E, C, D, generator=g, device="cuda").to(dtype)
+    w = (torch.randn(E, D, F, generator=g, device="cuda")
+         / np.sqrt(D)).to(dtype)
+    out = moe_gmm(x, w)
+    ref = moe_gmm_plain(x, w)
+    torch.cuda.synchronize()
+    err = max_err(out, ref)
+    item = x.element_size()
+    nbytes = (x.numel() + w.numel()) * item + out.numel() * 4
+    # the library yardstick: one torch.bmm in the input type (its output is
+    # rounded to that type)
+    return {"shape": f"{which}: ({E}, {C}, {D}) x ({E}, {D}, {F})",
+            "err": err,
+            "ms": timer(lambda: moe_gmm(x, w)),
+            "plain_ms": timer(lambda: moe_gmm_plain(x, w)),
+            "bound": bound_ms(nbytes, 2.0 * E * C * D * F,
+                              str(dtype).split(".")[1]),
+            "library_ms": timer(lambda: torch.bmm(x, w))}
+
+
 def check_stats(timer, T, K):
     from repro_torch.kernels.source_expert_count import (
         source_expert_count, source_expert_count_plain)
@@ -291,7 +378,8 @@ def kernel_phase():
     """Each kernel against its plain version at the serving shapes."""
     timer = Timer()
     results = {"paged_decode": [], "moe_gmm_ragged": [],
-               "source_expert_count": [], "pack_kv": [], "unpack_kv": []}
+               "source_expert_count": [], "pack_kv": [], "unpack_kv": [],
+               "flash_decode": [], "moe_gmm": []}
 
     def record(kname, dt, r):
         tol = TOL.get(dt.split("/")[0], 0.0)
@@ -321,6 +409,17 @@ def kernel_phase():
                 record("moe_gmm_ragged", dt,
                        check_gmm(timer, dtype, T, D, F,
                                  f"{which} {proj}"))
+        record("flash_decode", dt, check_flash_decode(timer, dtype))
+        # capacity C = max(ceil(S * K * 1.25 / E), 4): 4 at a decode step of
+        # 8 slots (one regrouped dispatch), 71 at a 900-token prefill
+        for E, C, D, F, which in (
+                (128, 4, 2048, 768, "decode gate/up"),
+                (128, 4, 768, 2048, "decode down"),
+                (128, 71, 2048, 768, "prefill gate/up S=900"),
+                (128, 71, 768, 2048, "prefill down S=900"),
+                (6, 37, 100, 130, "odd C, D, F")):
+            record("moe_gmm", dt,
+                   check_padded_gmm(timer, dtype, E, C, D, F, which))
     for T, K in ((2048, 1), (256, 8)):
         record("source_expert_count", "int32",
                check_stats(timer, T, K))
@@ -383,6 +482,69 @@ def serve_cluster(cfg, params, ecfg, reqs, **cluster_kw):
     if ecfg.device == "cuda":
         torch.cuda.synchronize()
     return res, engines, time.perf_counter() - t0
+
+
+def serve_dense_cluster(cfg, params, reqs, *, device, ragged, max_slots,
+                        max_len, **cluster_kw):
+    """``serve_real_cluster`` on two dense-cache ``RealModelEngine``s, each
+    holding the same initial params. Returns (SimResult, engines, wall s,
+    the peak KV occupancy the engines' traces reported)."""
+    from repro_torch.serving import (RealClusterConfig, RealModelEngine,
+                                     serve_real_cluster)
+    engines = [RealModelEngine(i, cfg, params, max_slots=max_slots,
+                               max_len=max_len, ragged_dispatch=ragged,
+                               device=device) for i in range(2)]
+    # the cluster's kv_peak reads page pools, which dense engines do not
+    # have: take the peak of the traces' token-level kv_usage instead
+    peak = [0.0]
+    for e in engines:
+        def trace(now, _trace=e.trace, **kw):
+            t = _trace(now, **kw)
+            peak[0] = max(peak[0], t.kv_usage)
+            return t
+        e.trace = trace
+    t0 = time.perf_counter()
+    res = serve_real_cluster(reqs, engines,
+                             cluster_cfg=RealClusterConfig(**cluster_kw))
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return res, engines, time.perf_counter() - t0, peak[0]
+
+
+def dense_cluster_reference(cfg, params, params_gpu):
+    """The float32 twin through serve_real_cluster over two dense-cache
+    engines, experts migrating, in each dispatch mode: the card and the CPU
+    give the same streams, decisions and migrations."""
+    from repro_torch.core import PlacementConfig
+    keys = ("decisions", "migrations", "expert_moves", "per_engine",
+            "unfinished", "kv_peak")
+    for ragged in (True, False):
+        out = {}
+        for dev, p in (("cpu", params), ("cuda", params_gpu)):
+            reqs = make_requests(cfg, 8, 6, 30, 5, seed=7, gap=0.1)
+            res, _, _, _ = serve_dense_cluster(
+                cfg, p, reqs, device=dev, ragged=ragged, max_slots=4,
+                max_len=64, window_tokens=48,
+                placement_cfg=PlacementConfig.uncalibrated())
+            out[dev] = ([r.full_output_tokens for r in reqs],
+                        {k: res.signals[k] for k in keys})
+        mode = "ragged" if ragged else "padded"
+        (toks_c, sig_c), (toks_g, sig_g) = out["cpu"], out["cuda"]
+        if toks_c != toks_g or sig_c != sig_g:
+            diff = [k for k in keys if sig_c[k] != sig_g[k]]
+            raise AssertionError(f"float32 twin dense cluster ({mode} "
+                                 f"dispatch): card and CPU disagree (tokens "
+                                 f"equal: {toks_c == toks_g}; signals that "
+                                 f"differ: {diff})")
+        if sig_g["migrations"] <= 0 or sig_g["unfinished"]:
+            raise AssertionError(f"float32 twin dense cluster ({mode}): "
+                                 f"expected migrations and a finished run, "
+                                 f"got {sig_g}")
+        log(f"reference: float32 twin dense cluster, {mode} dispatch: card "
+            f"kernels and CPU plain versions give the same "
+            f"{sum(map(len, toks_c))} tokens, decisions "
+            f"{sig_g['decisions']}, {sig_g['migrations']} migrations "
+            f"({sig_g['expert_moves']} expert moves)")
 
 
 def cluster_reference(cfg, params, params_gpu):
@@ -466,29 +628,34 @@ def reference_phase():
             f"CPU plain versions give the same {sum(map(len, toks_c))} "
             "tokens and B/A statistics")
     cluster_reference(cfg, params, params_gpu)
+    dense_cluster_reference(cfg, params, params_gpu)
 
 
-def profile_phase(cfg, params, ecfg, seed):
-    """The same 8 requests again under torch.profiler: the device's busy
-    share of the wall time, and the kernels that take the device time."""
+def profiled(label, run):
+    """``run()`` under torch.profiler: the device's busy share of the wall
+    time, and the kernels that take the device time. ``run`` returns a
+    phrase saying what it served."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    reqs = make_requests(cfg, 8, 100, 900, 32, seed=seed)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, steps, wall, _ = serve(cfg, params, ecfg, reqs)
+        t0 = time.perf_counter()
+        what = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     # device-side events only: a host op's row repeats its kernels' time
     rows = [(e.self_device_time_total, e.count, e.key)
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     if not rows:
-        raise AssertionError("profile: the profiler recorded no device "
-                             "events")
+        raise AssertionError(f"profile {label}: the profiler recorded no "
+                             "device events")
     busy_ms = sum(r[0] for r in rows) / 1e3
-    log(f"profile: {len(steps)} engine steps in {wall * 1e3:.1f} ms wall "
-        f"(profiled), device busy {busy_ms:.1f} ms = "
+    log(f"profile {label}: {what} in {wall * 1e3:.1f} ms wall (profiled), "
+        f"device busy {busy_ms:.1f} ms = "
         f"{100 * busy_ms / (wall * 1e3):.1f}% of the wall time")
     for us, n, key in sorted(rows, reverse=True)[:12]:
-        log(f"profile:   {us / 1e3:9.2f} ms  {n:6d} calls  {key[:90]}")
+        log(f"profile {label}:   {us / 1e3:9.2f} ms  {n:6d} calls  "
+            f"{key[:90]}")
 
 
 def serve_phase(args, counters):
@@ -573,7 +740,13 @@ def serve_phase(args, counters):
                              "the wrong shape")
     log(f"logits: prefill of 100 tokens gives finite f32 logits of shape "
         f"{tuple(logits.shape)}")
-    profile_phase(cfg, params, ecfg, args.seed)
+
+    def again():
+        _, steps, _, _ = serve(cfg, params, ecfg, make_requests(
+            cfg, 8, 100, 900, new_tokens, seed=args.seed))
+        return f"{len(steps)} engine steps"
+
+    profiled("serve", again)
     return launches, cfg, params
 
 
@@ -595,17 +768,7 @@ def cluster_phase(args, cfg, params, counters):
     # time each adoption of a placement: serve_real_cluster moves the
     # experts' weights through this function, once per shared runner
     moves = []
-    migrate = tfm.migrate_params_for_placement
-
-    def timed_migrate(*a, **kw):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = migrate(*a, **kw)
-        torch.cuda.synchronize()
-        moves.append(time.perf_counter() - t0)
-        return out
-
-    tfm.migrate_params_for_placement = timed_migrate
+    migrate = timed_migrations(tfm, moves)
     for fn in counters.values():
         fn.launches = 0
     try:
@@ -658,6 +821,103 @@ def cluster_phase(args, cfg, params, counters):
     return launches
 
 
+def timed_migrations(tfm, moves):
+    """Wrap tfm.migrate_params_for_placement (through which
+    serve_real_cluster moves the experts' weights) to time each call into
+    ``moves``; returns the original to restore."""
+    migrate = tfm.migrate_params_for_placement
+
+    def timed_migrate(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = migrate(*a, **kw)
+        torch.cuda.synchronize()
+        moves.append(time.perf_counter() - t0)
+        return out
+
+    tfm.migrate_params_for_placement = timed_migrate
+    return migrate
+
+
+def dense_cluster_phase(args, cfg, params, counters):
+    """16 requests arriving over time through serve_real_cluster on two
+    dense-cache RealModelEngines with the capacity-padded MoE dispatch,
+    under the Gimbal scheduler and an uncalibrated placement whose small
+    window makes experts migrate (each engine moves its own weights)."""
+    from repro_torch.core import PlacementConfig
+    from repro_torch.models import transformer as tfm
+    max_slots, max_len, new_tokens = 8, 1024, 32
+    reqs = make_requests(cfg, 16, 100, 900, new_tokens, seed=args.seed + 2,
+                         gap=0.1)
+    moves = []
+    migrate = timed_migrations(tfm, moves)
+    for fn in counters.values():
+        fn.launches = 0
+    try:
+        res, engines, wall, kv_peak = serve_dense_cluster(
+            cfg, params, reqs, device="cuda", ragged=False,
+            max_slots=max_slots, max_len=max_len, window_tokens=1024,
+            placement_cfg=PlacementConfig.uncalibrated())
+    finally:
+        tfm.migrate_params_for_placement = migrate
+    launches = {name: fn.launches for name, fn in counters.items()}
+
+    sig = res.signals
+    bad = [r.req_id for r in reqs if r.error or r.finish_time < 0
+           or len(r.full_output_tokens) != new_tokens
+           or not all(0 <= t < cfg.vocab_size for t in r.full_output_tokens)]
+    if bad or sig["unfinished"]:
+        raise AssertionError(f"dense cluster: requests {bad} did not finish "
+                             f"with a full in-vocabulary stream "
+                             f"({sig['errors']})")
+    if sig["migrations"] <= 0 or not moves:
+        raise AssertionError("dense cluster: no placement was adopted, so no "
+                             "expert weights moved on the card")
+    if min(sig["per_engine"].values()) <= 0:
+        raise AssertionError(f"dense cluster: an engine served nothing "
+                             f"({sig['per_engine']})")
+    for name in ("flash_decode", "moe_gmm"):
+        if launches[name] <= 1:
+            raise AssertionError(f"dense cluster: kernel {name} launched "
+                                 f"{launches[name]} times")
+    steps = sum(e.step_count for e in engines)
+    prompt = sum(r.prompt_len for r in reqs)
+    gen_tok = sum(len(r.full_output_tokens) for r in reqs)
+    cache_mib = sum(t.numel() * t.element_size() for e in engines
+                    for c in e.cache.values() for t in c.values()) / 2**20
+    log(f"dense cluster: {len(reqs)}/{len(reqs)} requests arriving over "
+        f"{reqs[-1].arrival_time:.1f} virtual s served through "
+        f"serve_real_cluster on 2 dense-cache RealModelEngines ({max_slots} "
+        f"slots x {max_len} tokens, padded MoE dispatch) at full width "
+        f"({cfg.n_layers} layers): {sig['rounds']} rounds, {steps} decode "
+        f"steps, {prompt} prompt + {gen_tok} generated tokens in {wall:.2f} "
+        f"s wall, {gen_tok / wall:.1f} generated tokens/s, "
+        f"{(prompt + gen_tok) / wall:.1f} tokens/s processed, on "
+        f"{torch.cuda.get_device_name(0)}")
+    log(f"dense cluster: decisions {sig['decisions']}, per engine "
+        f"{sig['per_engine']}, {sig['migrations']} placements adopted "
+        f"({sig['expert_moves']} expert moves), migrate wall ms "
+        f"{[round(t * 1e3, 1) for t in moves]}, kv_peak {kv_peak:.4f} "
+        f"(peak token occupancy of the dense caches in the engines' traces; "
+        f"the cluster's own kv_peak reads page pools: "
+        f"{sig['kv_peak']:.4f}), dense caches {cache_mib:.1f} MiB in all; "
+        f"launches {launches}")
+    del res, engines               # their migrated weights: 2 x 10.5 GiB
+
+    def again():
+        again_reqs = make_requests(cfg, 16, 100, 900, new_tokens,
+                                   seed=args.seed + 2, gap=0.1)
+        res, engines, _, _ = serve_dense_cluster(
+            cfg, params, again_reqs, device="cuda", ragged=False,
+            max_slots=max_slots, max_len=max_len, window_tokens=1024,
+            placement_cfg=PlacementConfig.uncalibrated())
+        return (f"{res.signals['rounds']} rounds, "
+                f"{sum(e.step_count for e in engines)} decode steps")
+
+    profiled("dense cluster", again)
+    return launches
+
+
 def main() -> int:
     args = parse_args()
     if not torch.cuda.is_available():
@@ -666,8 +926,9 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.join(HERE, "src"))
     from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.kernels.kv_pack import pack_kv, unpack_kv
-    from repro_torch.kernels.moe_gmm import moe_gmm_ragged
+    from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_ragged
     from repro_torch.kernels.paged_decode import paged_decode
     from repro_torch.kernels.source_expert_count import source_expert_count
 
@@ -680,20 +941,38 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
     t_build = ops.build()
-    log(f"build: {len(ops.KERNELS)} kernels with nvcc in {t_build:.1f} s")
+    log(f"build: {len(ops.KERNELS)} CUDA sources with nvcc in "
+        f"{t_build:.1f} s")
     for name, text in ops.build_logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
 
+    t_phase = [time.perf_counter()]
+
+    def phase_done(name):
+        t_phase.append(time.perf_counter())
+        log(f"time: {name} phase took {t_phase[-1] - t_phase[-2]:.1f} s")
+
     results = kernel_phase()
+    phase_done("kernel")
     reference_phase()
+    phase_done("reference")
     counters = {"paged_decode": paged_decode,
                 "moe_gmm_ragged": moe_gmm_ragged,
                 "source_expert_count": source_expert_count}
     serve_launches, cfg, params = serve_phase(args, counters)
+    phase_done("serve (with its profiled rerun)")
     counters.update(pack_kv=pack_kv, unpack_kv=unpack_kv)
     launches = cluster_phase(args, cfg, params, counters)
+    phase_done("cluster")
+    counters.update(flash_decode=flash_decode, moe_gmm=moe_gmm)
+    dense_launches = dense_cluster_phase(args, cfg, params, counters)
+    phase_done("dense cluster (with its profiled rerun)")
+    # each kernel's main-path count: the dense cluster serve for the two
+    # kernels of the dense plane, the paged cluster serve for the others
+    main_launches = dict(launches, flash_decode=dense_launches["flash_decode"],
+                         moe_gmm=dense_launches["moe_gmm"])
 
     meta = {
         "paged_decode": ("src/repro_torch/csrc/paged_decode.cu",
@@ -706,15 +985,20 @@ def main() -> int:
                     "src/repro/kernels/kv_pack.py:38"),
         "unpack_kv": ("src/repro_torch/csrc/kv_pack.cu",
                       "src/repro/kernels/kv_pack.py:45"),
+        "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
+                         "src/repro/kernels/flash_decode.py:22"),
+        "moe_gmm": ("src/repro_torch/csrc/moe_gmm.cu",
+                    "src/repro/kernels/moe_gmm.py:34"),
     }
     kernels = []
     for name, rows in results.items():
         main_row = rows[0][1]          # bf16 at the first serving shape
         kernels.append({
             "name": name, "route": "cuda", "source": meta[name][0],
-            "replaces": meta[name][1], "launches": launches[name],
+            "replaces": meta[name][1], "launches": main_launches[name],
             "launches_by_path": {"serve": serve_launches.get(name, 0),
-                                 "cluster_serve": launches[name]},
+                                 "cluster_serve": launches.get(name, 0),
+                                 "dense_cluster_serve": dense_launches[name]},
             "max_abs_err": max(r["err"] for dt, r in rows
                                if dt.split("/")[0] in ("bfloat16", "int32")),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],

@@ -19,7 +19,7 @@ def list_archs() -> List[str]:
 def _module(arch: str):
     if arch not in _ARCHS:
         raise KeyError(f"unknown arch {arch!r}; choose from {list_archs()}")
-    return importlib.import_module(f"repro.configs.{_ARCHS[arch]}")
+    return importlib.import_module(f"repro_torch.configs.{_ARCHS[arch]}")
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -32,41 +32,16 @@
 //     slices' partials to the global max and divides by the global sum.
 // Splitting the context in 128-token slices gives B * Hkv * ceil(NB * ps /
 // 128) blocks (256 at the serving shape) instead of B * Hkv = 32.
-// Tensor-core scoring, a TMA ring of K/V pages and a fused combine are
-// later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
+// The online-softmax tile step, the partials and the combine pass are
+// split_kv_decode.cuh, shared with flash_decode.cu. Tensor-core scoring, a
+// TMA ring of K/V pages and a fused combine are later work.
 #include <type_traits>
+
+#include "split_kv_decode.cuh"
 
 namespace {
 
-constexpr int TILE = 32;       // tokens staged per step
-constexpr int THREADS = 256;
-constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// 16 bytes of T -> VEC floats at dst[0], dst[1], ...
-template <typename T>
-__device__ __forceinline__ void unpack16(const uint4& raw, float* dst) {
-  const T* v = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 16 / (int)sizeof(T); ++i) dst[i] = to_f(v[i]);
-}
+using namespace split_kv;
 
 // T: query/output type; TP: page type (T, or int8_t with scales ksc/vsc)
 template <typename T, typename TP>
@@ -85,18 +60,10 @@ paged_decode_partial(const T* __restrict__ q, const TP* __restrict__ kp,
   const int b = blockIdx.x, h = blockIdx.y, split = blockIdx.z;
   const int tid = threadIdx.x;
   const int G = Hq / Hkv;
-  const int ks_ld = hd + 1;    // padded K rows: conflict-free score reads
 
   extern __shared__ float smem[];
-  float* qs = smem;                    // [G][hd]
-  float* ks = qs + G * hd;             // [TILE][hd + 1]
-  float* vs = ks + TILE * ks_ld;       // [TILE][hd]
-  float* sc = vs + TILE * hd;          // [G][TILE] scores, then weights
-  float* acc = sc + G * TILE;          // [G][hd]
-  float* ms = acc + G * hd;            // [G] running max
-  float* ls = ms + G;                  // [G] running sum
-  float* cs = ls + G;                  // [G] rescale of this step
-  int* pages = reinterpret_cast<int*>(cs + G);   // [split_tokens / ps + 2]
+  const State st(smem, G, hd);
+  int* pages = reinterpret_cast<int*>(st.end(G));   // [split_tokens / ps + 2]
 
   const int ctx = max(0, min(ctx_lens[b], NB * ps));
   const int lo = split * split_tokens;
@@ -106,14 +73,8 @@ paged_decode_partial(const T* __restrict__ q, const TP* __restrict__ kp,
     const int n_blk = (hi - 1) / ps - blk0 + 1;
     for (int i = tid; i < n_blk; i += blockDim.x)
       pages[i] = bt[(size_t)b * NB + blk0 + i];
-    const T* qb = q + ((size_t)b * Hq + (size_t)h * G) * hd;
-    for (int i = tid; i < G * hd; i += blockDim.x) qs[i] = to_f(qb[i]);
   }
-  for (int i = tid; i < G * hd; i += blockDim.x) acc[i] = 0.f;
-  for (int g = tid; g < G; g += blockDim.x) {
-    ms[g] = NEG_INF;
-    ls[g] = 0.f;
-  }
+  init_state(st, q + ((size_t)b * Hq + (size_t)h * G) * hd, G, hd);
   __syncthreads();
 
   const int row_vecs = hd / VEC;
@@ -139,87 +100,13 @@ paged_decode_partial(const T* __restrict__ q, const TP* __restrict__ kp,
           vf[j] *= v_scale;
         }
       }
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) {
-        ks[t * ks_ld + c * VEC + j] = kf[j];
-        vs[t * hd + c * VEC + j] = vf[j];
-      }
+      stage<VEC>(st, hd, t, c, kf, vf);
     }
     __syncthreads();
-
-    for (int i = tid; i < G * TILE; i += blockDim.x) {
-      const int g = i / TILE, t = i - g * TILE;
-      float s = NEG_INF;
-      if (t < n) {
-        float dot = 0.f;
-        const float* qr = qs + g * hd;
-        const float* kr = ks + t * ks_ld;
-        for (int d = 0; d < hd; ++d) dot = fmaf(qr[d], kr[d], dot);
-        s = dot * scale;
-      }
-      sc[i] = s;
-    }
-    __syncthreads();
-
-    for (int g = tid; g < G; g += blockDim.x) {
-      const float m_prev = ms[g];
-      float m_new = m_prev;
-      for (int t = 0; t < n; ++t) m_new = fmaxf(m_new, sc[g * TILE + t]);
-      float sum = 0.f;
-      for (int t = 0; t < TILE; ++t) {
-        const float p = t < n ? expf(sc[g * TILE + t] - m_new) : 0.f;
-        sc[g * TILE + t] = p;
-        sum += p;
-      }
-      const float c = expf(m_prev - m_new);
-      ls[g] = ls[g] * c + sum;
-      ms[g] = m_new;
-      cs[g] = c;
-    }
-    __syncthreads();
-
-    for (int i = tid; i < G * hd; i += blockDim.x) {
-      const int g = i / hd, d = i - g * hd;
-      float a = acc[i] * cs[g];
-      for (int t = 0; t < n; ++t)
-        a = fmaf(sc[g * TILE + t], vs[t * hd + d], a);
-      acc[i] = a;
-    }
-    __syncthreads();
+    attend_tile(st, G, hd, n, scale);
   }
-
-  // partials of query heads h*G .. h*G+G-1 for this slice; an empty slice
-  // writes (NEG_INF, 0, 0), which the combine weighs by exp(-huge) = 0
-  for (int i = tid; i < G * hd; i += blockDim.x) {
-    const int g = i / hd, d = i - g * hd;
-    const size_t row = ((size_t)b * Hq + h * G + g) * n_split + split;
-    acc_part[row * hd + d] = acc[i];
-    if (d == 0) {
-      m_part[row] = ms[g];
-      l_part[row] = ls[g];
-    }
-  }
-}
-
-template <typename T>
-__global__ void paged_decode_combine(const float* __restrict__ m_part,
-                                     const float* __restrict__ l_part,
-                                     const float* __restrict__ acc_part,
-                                     T* __restrict__ out, int Hq, int hd,
-                                     int n_split) {
-  const int b = blockIdx.x, hq = blockIdx.y;
-  const size_t row0 = ((size_t)b * Hq + hq) * n_split;
-  float m = NEG_INF;
-  for (int s = 0; s < n_split; ++s) m = fmaxf(m, m_part[row0 + s]);
-  float l = 0.f;
-  for (int s = 0; s < n_split; ++s)
-    l += l_part[row0 + s] * expf(m_part[row0 + s] - m);
-  for (int d = threadIdx.x; d < hd; d += blockDim.x) {
-    float a = 0.f;
-    for (int s = 0; s < n_split; ++s)
-      a += acc_part[(row0 + s) * hd + d] * expf(m_part[row0 + s] - m);
-    out[((size_t)b * Hq + hq) * hd + d] = from_f<T>(a / fmaxf(l, 1e-30f));
-  }
+  write_partials(st, b, h, split, G, Hq, hd, n_split, m_part, l_part,
+                 acc_part);
 }
 
 template <typename T, typename TP>
@@ -230,10 +117,8 @@ int launch(const void* q, const void* kp, const void* vp, const void* ksc,
            int n_split, int split_tokens, float scale,
            cudaStream_t stream) {
   const int G = Hq / Hkv;
-  const size_t smem =
-      sizeof(float) * ((size_t)2 * G * hd + TILE * (hd + 1) + TILE * hd +
-                       G * TILE + 3 * G) +
-      sizeof(int) * (split_tokens / ps + 2);
+  const size_t smem = sizeof(float) * state_floats(G, hd) +
+                      sizeof(int) * (split_tokens / ps + 2);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         paged_decode_partial<T, TP>,
@@ -251,11 +136,8 @@ int launch(const void* q, const void* kp, const void* vp, const void* ksc,
       hd, ps, NB, n_split, split_tokens, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  paged_decode_combine<T><<<dim3(B, Hq), hd < 1024 ? hd : 1024, 0, stream>>>(
-      static_cast<const float*>(m_part), static_cast<const float*>(l_part),
-      static_cast<const float*>(acc_part), static_cast<T*>(out), Hq, hd,
-      n_split);
-  return (int)cudaGetLastError();
+  return launch_combine<T>(m_part, l_part, acc_part, out, B, Hq, hd,
+                           n_split, stream);
 }
 
 }  // namespace
@@ -280,7 +162,7 @@ extern "C" int paged_decode_launch(const void* q, const void* k_pages,
                                    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (split_tokens <= 0 || split_tokens % TILE ||
+  if (split_tokens <= 0 || split_tokens % split_kv::TILE ||
       (long long)n_split * split_tokens < (long long)NB * ps)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;

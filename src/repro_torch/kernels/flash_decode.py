@@ -1,0 +1,93 @@
+"""Flash-decode attention: one new token per request against a dense KV cache.
+
+The cache is slot-indexed: ``(B, L, Hkv, hd)`` per layer, with ``k_pos``
+``(B, L)`` holding the absolute position in each slot and -1 for a slot
+never written (a ring cache: ``models/attention.py::ring_positions``). Slot
+l of row b is attended iff ``0 <= k_pos[b, l] <= q_pos[b]``. A row with no
+valid slot gives exact zeros, as the reference's Pallas kernel does.
+
+``flash_decode`` launches the CUDA kernel ``csrc/flash_decode.cu`` on a CUDA
+tensor and runs ``flash_decode_plain`` on a CPU tensor.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import ops
+
+NEG_INF = -1e30
+# cache slots per block of the kernel's partial pass
+SPLIT_TOKENS = 128
+
+
+def flash_decode_plain(q, k_cache, v_cache, k_pos, q_pos):
+    """Masked softmax attention in f32 (the same function as the kernel):
+    masked weights are zeroed after the exponent, so a row with no valid
+    slot divides 0 by max(0, 1e-30) and gives zeros."""
+    B, Hq, hd = q.shape
+    _, L, Hkv, _ = k_cache.shape
+    G = Hq // Hkv
+    qg = q.reshape(B, Hkv, G, hd).float()
+    s = torch.einsum("bkgd,blkd->bkgl", qg, k_cache.float()) / np.sqrt(hd)
+    kp = k_pos.long()
+    valid = ((kp >= 0) & (kp <= q_pos.long()[:, None]))[:, None, None, :]
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - m), torch.zeros_like(s))
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bkgl,blkd->bkgd", p, v_cache.float())
+    out = acc / torch.clamp(l, min=1e-30)
+    return out.reshape(B, Hq, hd).to(q.dtype)
+
+
+def flash_decode(q, k_cache, v_cache, k_pos, q_pos):
+    """q (B, Hq, hd) bf16/f32; k_cache, v_cache (B, L, Hkv, hd) in q's dtype;
+    k_pos (B, L) int32 (-1 = empty slot); q_pos (B,) int32 -> (B, Hq, hd)
+    in q's dtype."""
+    if q.device.type == "cpu":
+        return flash_decode_plain(q, k_cache, v_cache, k_pos, q_pos)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_decode: no kernel for device {q.device}")
+    B, Hq, hd = q.shape
+    if k_cache.dim() != 4 or k_cache.shape[0] != B or k_cache.shape[3] != hd \
+            or v_cache.shape != k_cache.shape or Hq % k_cache.shape[2]:
+        raise ValueError(f"flash_decode: q {tuple(q.shape)} does not fit the "
+                         f"caches {tuple(k_cache.shape)} / "
+                         f"{tuple(v_cache.shape)}")
+    L, Hkv = k_cache.shape[1], k_cache.shape[2]
+    if tuple(k_pos.shape) != (B, L) or tuple(q_pos.shape) != (B,):
+        raise ValueError(f"flash_decode: k_pos must be {(B, L)} and q_pos "
+                         f"{(B,)}, got {tuple(k_pos.shape)}, "
+                         f"{tuple(q_pos.shape)}")
+    if q.dtype not in ops.DTYPE_CODE or k_cache.dtype != q.dtype \
+            or v_cache.dtype != q.dtype:
+        raise TypeError(f"flash_decode: q and the caches must share a dtype "
+                        f"in bf16/f32, got {q.dtype}, {k_cache.dtype}, "
+                        f"{v_cache.dtype}")
+    ops.check_int32("flash_decode", {"k_pos": k_pos, "q_pos": q_pos})
+    ops.check_cuda("flash_decode", {"q": q, "k_cache": k_cache,
+                                    "v_cache": v_cache, "k_pos": k_pos,
+                                    "q_pos": q_pos}, q.device)
+    if (hd * q.element_size()) % 16 or k_cache.data_ptr() % 16 \
+            or v_cache.data_ptr() % 16:
+        raise ValueError("flash_decode: the kernel reads 16-byte vectors: "
+                         "hd * itemsize must be a multiple of 16 and the "
+                         "caches 16-byte aligned")
+    n_split = max(1, -(-L // SPLIT_TOKENS))
+    out = torch.empty_like(q)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    m_part = torch.empty((B, Hq, n_split), **f32)
+    l_part = torch.empty((B, Hq, n_split), **f32)
+    acc_part = torch.empty((B, Hq, n_split, hd), **f32)
+    ops.launch("flash_decode", q.data_ptr(), k_cache.data_ptr(),
+               v_cache.data_ptr(), k_pos.data_ptr(), q_pos.data_ptr(),
+               m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
+               out.data_ptr(), B, Hq, Hkv, hd, L, n_split, SPLIT_TOKENS,
+               float(1.0 / np.sqrt(hd)), ops.DTYPE_CODE[q.dtype],
+               device=q.device)
+    flash_decode.launches += 1
+    return out
+
+
+flash_decode.launches = 0

@@ -1,20 +1,57 @@
-"""Group-sized ragged grouped matmul (the MoE expert FFN hot spot).
+"""Grouped expert matmuls (the MoE expert FFN hot spot), two formulations.
 
-x is one ``(Np, D)`` buffer of tokens sorted by expert with block-aligned
-group starts (see ``kernels/moe_dispatch.ragged_dispatch``). Row tile n
-(``n_block`` rows) uses the weights of expert ``tile_expert[n]``; tiles past
-``padded_offsets[E]`` or wholly inside a group's alignment padding give 0,
-and so do rows past the group's real size. Output ``(Np, F)`` is f32.
+* ``moe_gmm``: the capacity-padded batched GEMM ``y[e] = x[e] @ w[e]`` over
+  an ``(E, C, D)`` buffer, every capacity slot multiplied (padding
+  included); output ``(E, C, F)`` f32. It carries the padded dispatch of
+  ``models/moe.py`` (``moe_layer(ragged=False)``).
 
-``moe_gmm_ragged`` launches ``csrc/moe_gmm.cu`` on a CUDA tensor and runs
-``moe_gmm_ragged_plain`` on a CPU tensor. The capacity-padded ``moe_gmm``
-of the reference is not ported yet (ROADMAP.md, Queue B).
+* ``moe_gmm_ragged``: the group-sized ragged GEMM. x is one ``(Np, D)``
+  buffer of tokens sorted by expert with block-aligned group starts (see
+  ``kernels/moe_dispatch.ragged_dispatch``). Row tile n (``n_block`` rows)
+  uses the weights of expert ``tile_expert[n]``; tiles past
+  ``padded_offsets[E]`` or wholly inside a group's alignment padding give
+  0, and so do rows past the group's real size. Output ``(Np, F)`` is f32.
+
+Each wrapper launches its entry point of ``csrc/moe_gmm.cu`` on a CUDA
+tensor and runs its ``*_plain`` version on a CPU tensor.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ops
+
+
+def moe_gmm_plain(x, w):
+    """x (E, C, D) @ w (E, D, F) -> (E, C, F), in f32."""
+    return torch.einsum("ecd,edf->ecf", x.float(), w.float())
+
+
+def moe_gmm(x, w):
+    """x (E, C, D), w (E, D, F) in bf16 or f32 -> (E, C, F) f32. Any C, D
+    and F: the kernel masks the edges itself."""
+    if x.device.type == "cpu":
+        return moe_gmm_plain(x, w)
+    if x.device.type != "cuda":
+        raise ValueError(f"moe_gmm: no kernel for device {x.device}")
+    if x.dim() != 3 or w.dim() != 3 or w.shape[0] != x.shape[0] \
+            or w.shape[1] != x.shape[2]:
+        raise ValueError(f"moe_gmm: x {tuple(x.shape)} vs w "
+                         f"{tuple(w.shape)}")
+    if x.dtype not in ops.DTYPE_CODE or w.dtype != x.dtype:
+        raise TypeError(f"moe_gmm: x and w must share a dtype in bf16/f32, "
+                        f"got {x.dtype}, {w.dtype}")
+    ops.check_cuda("moe_gmm", {"x": x, "w": w}, x.device)
+    E, C, D = x.shape
+    F = w.shape[-1]
+    out = torch.empty((E, C, F), dtype=torch.float32, device=x.device)
+    ops.launch("moe_gmm_padded", x.data_ptr(), w.data_ptr(), out.data_ptr(),
+               E, C, D, F, ops.DTYPE_CODE[x.dtype], device=x.device)
+    moe_gmm.launches += 1
+    return out
+
+
+moe_gmm.launches = 0
 
 
 def moe_gmm_ragged_plain(x, w, tile_expert, group_sizes, padded_offsets, *,

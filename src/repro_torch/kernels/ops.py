@@ -5,8 +5,8 @@ that return the launch's ``cudaError_t``, and ``<name>_error_string``. At
 first use the sources are compiled with ``nvcc`` for ``sm_90a`` into
 ``build/repro_torch_kernels/<hash>/`` at the root of the checkout, one
 ``nvcc`` per source, all started together and keyed by a hash of the
-sources and flags. The libraries are loaded with
-``ctypes``; pointers and the stream cross as ``c_void_p``.
+source, the shared headers ``csrc/*.cuh`` and the flags. The libraries are
+loaded with ``ctypes``; pointers and the stream cross as ``c_void_p``.
 
 Nothing here runs when the module is imported: the CPU tests import it on
 hosts without ``nvcc`` or a card.
@@ -24,7 +24,8 @@ from typing import Dict, Iterable
 
 import torch
 
-KERNELS = ("paged_decode", "moe_gmm", "source_expert_count", "kv_pack")
+KERNELS = ("paged_decode", "flash_decode", "moe_gmm", "source_expert_count",
+           "kv_pack")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -41,6 +42,11 @@ _ENTRIES = {
     # x, w, tile_expert, group_sizes, padded_offsets, out, Np, D, F, E, nb,
     # dtype, device, stream
     "moe_gmm": ("moe_gmm", [_P] * 6 + [_I] * 7 + [_P]),
+    # x, w, out, E, C, D, F, dtype, device, stream
+    "moe_gmm_padded": ("moe_gmm", [_P] * 3 + [_I] * 6 + [_P]),
+    # q, k_cache, v_cache, k_pos, q_pos, m_part, l_part, acc_part, out, B,
+    # Hq, Hkv, hd, L, n_split, split_tokens, scale, dtype, device, stream
+    "flash_decode": ("flash_decode", [_P] * 9 + [_I] * 7 + [_F, _I, _I, _P]),
     # expert_idx, source_ids, b_out, a_out, T, K, E, S, device, stream
     "source_expert_count": ("source_expert_count",
                             [_P] * 4 + [_I] * 5 + [_P]),
@@ -66,7 +72,8 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_ROOT / key / f"lib{name}.so"
 

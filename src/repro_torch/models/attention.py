@@ -1,10 +1,18 @@
-"""Blocked (flash-style) attention in plain PyTorch, for chunked prefill.
+"""Attention for prefill and for dense-cache decode.
 
-The reference's ``flash_attention`` is plain JAX (no Pallas kernel), so it
-stays plain here: a loop over KV blocks with a running max and sum in f32.
-Like the reference, the softmax weights ``p`` are cast to the KV dtype
-before the PV product; ``scaled_dot_product_attention`` would not reproduce
-that rounding. Invalid KV slots are encoded as ``k_pos < 0``.
+``flash_attention`` (prefill, chunked prefill): the reference's is plain JAX
+(no Pallas kernel), so it stays plain here: a loop over KV blocks with a
+running max and sum in f32. Like the reference, the softmax weights ``p``
+are cast to the KV dtype before the PV product;
+``scaled_dot_product_attention`` would not reproduce that rounding.
+
+``decode_attention`` (one token against a dense ring cache) goes through the
+flash-decode kernel (``kernels/flash_decode.py``), whose softmax weights
+stay f32. The reference's ``decode_attention`` goes through its
+``flash_attention`` and so rounds them to the KV dtype: the two agree in
+float32 and to the bf16 tolerance in bf16 (ROADMAP.md Queue C).
+
+Invalid KV slots are encoded as ``k_pos < 0``.
 """
 from __future__ import annotations
 
@@ -13,6 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.models.layers import softcap as _softcap
 
 NEG_INF = -1e30
@@ -79,3 +88,34 @@ def flash_attention(q, k, v, *, q_pos, k_pos, causal: bool = True,
         out = acc / torch.clamp(l, min=1e-30)[..., None]
         outs.append(out.permute(0, 3, 1, 2, 4).to(q.dtype))  # (B,Bq,Hkv,G,hd)
     return torch.cat(outs, dim=1).reshape(B, Sq, Hq, hd)
+
+
+def decode_attention(q, k_cache, v_cache, *, q_pos, k_pos, window: int = 0,
+                     softcap_val: float = 0.0, k_scale=None, v_scale=None):
+    """Single-token decode attention against a (ring-buffered) KV cache.
+
+    q: (B, 1, Hq, hd); caches: (B, L, Hkv, hd); q_pos: (B, 1); k_pos: (B, L)
+    with -1 marking never-written slots -> (B, 1, Hq, hd). The flash-decode
+    kernel on the card, its plain version on the CPU.
+    """
+    if window or softcap_val or k_scale is not None or v_scale is not None:
+        raise NotImplementedError("decode attention with a sliding window, a "
+                                  "logit softcap or int8 scales is not ported "
+                                  "yet (ROADMAP.md Queue A item 8)")
+    out = flash_decode(q[:, 0].contiguous(), k_cache, v_cache,
+                       k_pos.to(torch.int32).contiguous(),
+                       q_pos[:, 0].to(torch.int32).contiguous())
+    return out[:, None]
+
+
+def ring_positions(write_pos, cache_len: int):
+    """Positions held by a ring buffer after ``write_pos + 1`` total writes.
+
+    Slot i holds absolute position p = last p <= write_pos with p % L == i,
+    or -1 if that slot was never written. write_pos: (B,) int.
+    Returns (B, L) int32.
+    """
+    i = torch.arange(cache_len, device=write_pos.device)[None, :]
+    wp = write_pos.long()[:, None]
+    p = wp - torch.remainder(wp - i, cache_len)
+    return torch.where(p >= 0, p, torch.full_like(p, -1)).to(torch.int32)

@@ -3,9 +3,10 @@
 * Expert weights are stored in **physical slot order**; the Gimbal expert
   placement is a logical->physical permutation passed as a runtime input
   (``placement``), so migrating experts is a gather of weight rows.
-* Dispatch is the sort-based dropless ragged path
-  (``kernels/moe_dispatch.py`` + the ragged GMM kernel). The reference's
-  capacity-padded path is not ported yet: ``ragged=False`` raises.
+* Two dispatch formulations: the sort-based dropless ragged path
+  (``kernels/moe_dispatch.py`` + the ragged GMM kernel, the default) and
+  the capacity-padded path (``ragged=False``: per-row expert queues of
+  capacity C, drops past C, the batched ``moe_gmm`` kernel).
 * The layer emits the paper's two statistics along the dispatch path:
   aggregate expert load ``B[e]`` and the source-DP-to-expert matrix
   ``A[s, e]`` (logical expert ids), the latter from the
@@ -20,12 +21,9 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.moe_dispatch import (pick_row_block, ragged_combine,
                                               ragged_dispatch, ragged_gmm)
+from repro_torch.kernels.moe_gmm import moe_gmm
 from repro_torch.kernels.source_expert_count import source_expert_count
 from repro_torch.models.layers import dense_init, torch_dtype
-
-PADDED_DISPATCH_TODO = ("the capacity-padded MoE dispatch is not ported yet "
-                        "(ROADMAP.md Queue B: moe_gmm and the padded "
-                        "dispatch path)")
 
 
 def init_moe(cfg, *, generator: torch.Generator, device="cuda"):
@@ -127,19 +125,55 @@ def _ragged_moe_ffn(params, x, gates, logical_idx, placement, E, K, src2d,
     return y2d.reshape(B, S, D).to(x.dtype), stats
 
 
+def _padded_moe_ffn(params, x, gates, logical_idx, placement, E, K, cf):
+    """Capacity-padded expert FFN, grouped per batch row (GShard grouping):
+    each row queues its token slots per physical expert in token-major,
+    k-minor order; slots past the capacity C go to the trash row ``E*C``
+    and are dropped. The three products run on the ``(E, B*C, D)`` buffer
+    through ``moe_gmm``; each f32 result is cast to the activation dtype,
+    as the reference's einsums return it."""
+    B, S, D = x.shape
+    dt = x.dtype
+    C = max(int(-(-S * K * cf // E)), 4)           # per-row expert capacity
+    flat_e = placement.long()[logical_idx.long()].reshape(B, S * K)
+    # position of each slot within its expert's queue: exclusive cumsum of
+    # the one-hot over the row's slots
+    oh = F.one_hot(flat_e, E)                                # (B, S*K, E)
+    pos = (torch.cumsum(oh, dim=1) - oh).gather(2, flat_e[..., None])[..., 0]
+    dest = torch.where(pos < C, flat_e * C + pos,
+                       torch.full_like(pos, E * C))          # (B, S*K)
+    bidx = torch.arange(B, device=x.device)[:, None]
+    updates = x[:, :, None, :].expand(B, S, K, D).reshape(B, S * K, D)
+    buf = torch.zeros((B, E * C + 1, D), dtype=dt, device=x.device)
+    buf[bidx, dest] = updates          # drops collide in the trash row only
+    xe = buf[:, :E * C].reshape(B, E, C, D).transpose(0, 1) \
+        .reshape(E, B * C, D)
+    gate = moe_gmm(xe, params["w_gate"]).to(dt)
+    up = moe_gmm(xe, params["w_up"]).to(dt)
+    h = F.silu(gate.float()).to(dt) * up
+    ye = moe_gmm(h, params["w_down"]).to(dt)
+    ye_rows = ye.reshape(E, B, C, D).transpose(0, 1).reshape(B, E * C, D)
+    ybuf = torch.cat([ye_rows, torch.zeros((B, 1, D), dtype=dt,
+                                           device=x.device)], dim=1)
+    ytok = ybuf[bidx, dest].reshape(B, S, K, D)
+    return (ytok * gates[..., None].to(dt)).sum(dim=2)
+
+
 def moe_layer(params, cfg, x, placement, *, source_ids=None,
               n_sources: int = 0, collect_stats: bool = True,
-              ragged: Optional[bool] = None, token_mask=None):
+              ragged: bool = True, token_mask=None,
+              capacity_factor: Optional[float] = None):
     """x: (B, S, D) -> (y (B, S, D), stats dict).
 
     placement: (E,) int32 logical->physical slot permutation.
     source_ids: (B,) int32 DP-source id per batch row (for A[s, e]).
+    ragged: the sort-based dropless dispatch (default) or, when False, the
+    capacity-padded one, whose tokens past an expert's capacity are
+    dropped (``capacity_factor`` overrides the config's).
     token_mask: (B, S) bool — tokens to count in the routing statistics
     (padding rows and inactive decode lanes are False). Compute is
     unaffected; only the reported load is masked.
     """
-    if ragged is False:
-        raise NotImplementedError(PADDED_DISPATCH_TODO)
     m = cfg.moe
     B, S, D = x.shape
     K, E = m.top_k, m.n_experts
@@ -147,15 +181,39 @@ def moe_layer(params, cfg, x, placement, *, source_ids=None,
     src = None
     if source_ids is not None:
         src = source_ids[:, None].expand(B, S)
-    y, stats = _ragged_moe_ffn(params, x, gates, logical_idx, placement, E, K,
-                               src, n_sources, collect_stats,
-                               token_mask=token_mask)
-    # router aux loss (train-time load balancing), from routing probs
-    probs_mean = probs.reshape(B * S, E).mean(dim=0)
-    frac = F.one_hot(logical_idx.reshape(B * S, K).long(), E).float() \
+    if ragged:
+        y, stats = _ragged_moe_ffn(params, x, gates, logical_idx, placement,
+                                   E, K, src, n_sources, collect_stats,
+                                   token_mask=token_mask)
+        return y, _moe_epilogue(stats, probs, logical_idx, E, K)
+
+    stats = {}
+    if collect_stats:
+        stats = expert_statistics(logical_idx, E, src, n_sources,
+                                  token_mask=token_mask)
+    cf = capacity_factor if capacity_factor is not None \
+        else m.capacity_factor
+    if S == 1 and B > 1:
+        # decode: the whole batch is ONE dispatch group, not B groups of
+        # capacity 4 each
+        y = _padded_moe_ffn(params, x.reshape(1, B, D),
+                            gates.reshape(1, B, K),
+                            logical_idx.reshape(1, B, K), placement, E, K,
+                            cf).reshape(B, 1, D)
+    else:
+        y = _padded_moe_ffn(params, x, gates, logical_idx, placement, E, K,
+                            cf)
+    return y, _moe_epilogue(stats, probs, logical_idx, E, K)
+
+
+def _moe_epilogue(stats, probs, logical_idx, E, K):
+    """The router aux loss (train-time load balancing) from the routing
+    probabilities, added to ``stats`` (both dispatch paths)."""
+    probs_mean = probs.reshape(-1, E).mean(dim=0)
+    frac = F.one_hot(logical_idx.reshape(-1, K).long(), E).float() \
         .sum(dim=1).mean(dim=0)
     stats["aux_loss"] = E * torch.sum(probs_mean * frac)
-    return y, stats
+    return stats
 
 
 def migrate_expert_weights(params, old_placement, new_placement):

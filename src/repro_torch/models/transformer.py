@@ -1,4 +1,4 @@
-"""Decoder-only MoE transformer over a paged KV pool (the serving data plane).
+"""Decoder-only MoE transformer: the serving data planes' model entry points.
 
 Layers are grouped into *super-blocks* (period P = lcm(moe_every,
 local_ratio + 1)); params and page pools are stacked ``(n_super, ...)`` per
@@ -9,12 +9,17 @@ A[s, e] / B[e] statistics.
 
 Three paged entry points: ``prefill_chunk_paged`` (chunked prefill of B
 lanes), ``decode_step_paged`` (one token per lane through the paged decode
-kernel) and ``mixed_step_paged`` (both in one dispatch). They update the
-page pool **in place** and also return it, so a caller may keep
-reassigning its pool from the return value as with the reference.
+kernel) and ``mixed_step_paged`` (both in one dispatch). Two dense-cache
+entry points, for the slot-indexed plane (``serving/real_engine.py``):
+``prefill`` (S tokens into a fresh ``(B, L)`` cache, a ring when L < S)
+and ``decode_step`` (one token per row through the flash-decode kernel).
+All of them update the KV cache **in place** and also return it, so a
+caller may keep reassigning its cache from the return value as with the
+reference. ``ragged`` picks the MoE dispatch of every layer: the ragged
+path (default) or the capacity-padded one.
 
-The dense-cache entry points, training and the other model families are
-later slices (ROADMAP.md Queue A).
+Training and the other model families are later slices (ROADMAP.md
+Queue A).
 """
 from __future__ import annotations
 
@@ -29,10 +34,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.kv_pack import pack_kv, unpack_kv
 from repro_torch.kernels.paged_decode import paged_decode
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.attention import flash_attention
+from repro_torch.models.attention import (decode_attention,
+                                          flash_attention, ring_positions)
 from repro_torch.models.layers import (apply_rope, dense_init, embed_tokens,
                                        init_embed, init_mlp, lm_logits, mlp,
                                        rms_norm, torch_dtype)
+
 
 @dataclasses.dataclass(frozen=True)
 class LayerDesc:
@@ -133,6 +140,32 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
 
 
 # ------------------------------------------------------------------ cache
+def kv_len_for(cfg: ModelConfig, desc: LayerDesc, max_len: int) -> int:
+    if desc.local and cfg.sliding_window > 0:
+        return min(cfg.sliding_window, max_len)
+    return max_len
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               kv_dtype: str = "bfloat16", device="cuda"):
+    """Dense slot-indexed KV cache: per super-block position k/v tensors of
+    shape (n_super, batch, L, Hkv, hd) in the model's dtype, L =
+    ``kv_len_for(max_len)``. Any ``kv_dtype`` but "int8" keeps the model
+    dtype, as in the reference."""
+    if kv_dtype == "int8":
+        raise NotImplementedError("int8 dense KV caches are not ported yet "
+                                  "(ROADMAP.md Queue A item 8)")
+    ns = n_super_blocks(cfg)
+    dt = torch_dtype(cfg.dtype)
+    cache = {}
+    for j, desc in enumerate(period_descriptors(cfg)):
+        shape = (ns, batch, kv_len_for(cfg, desc, max_len), cfg.n_kv_heads,
+                 cfg.head_dim)
+        cache[f"pos{j}"] = {"k": torch.zeros(shape, dtype=dt, device=device),
+                            "v": torch.zeros(shape, dtype=dt, device=device)}
+    return cache
+
+
 def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
                      kv_dtype: str = "auto", device="cuda"):
     """Physical KV page pool: per super-block position k/v tensors of shape
@@ -312,23 +345,67 @@ def _paged_attention(cfg, q, k, v, positions, cache, mode, paged):
     return out, cache
 
 
+def _dense_attention(cfg, desc, q, k, v, positions, cache, mode):
+    """Dense slot-indexed KV: write the new k/v into the cache rows (in
+    place), then attend. cache: {"k": (B, L, Hkv, hd), "v": ...}, one
+    super-block slice.
+
+    prefill: causal flash attention over the S new tokens; the cache keeps
+    them at slots [0, S), or the last L at slots pos % L when L < S (ring).
+    decode (S == 1): the token at position p goes to slot p % L, and the
+    slots' positions come from ``ring_positions``."""
+    B, S = positions.shape
+    window = cfg.sliding_window if desc.local else 0
+    ck, cv = cache["k"], cache["v"]
+    L = ck.shape[1]
+    if mode == "prefill":
+        out = flash_attention(q, k, v, q_pos=positions, k_pos=positions,
+                              causal=True, window=window,
+                              softcap_val=cfg.attn_logit_softcap)
+        if L >= S:
+            ck[:, :S] = k
+            cv[:, :S] = v
+        else:              # ring: keep the last L tokens at slots pos % L
+            bidx = torch.arange(B, device=q.device)[:, None]
+            slots = (positions[:, S - L:] % L).long()
+            ck[bidx, slots] = k[:, S - L:]
+            cv[bidx, slots] = v[:, S - L:]
+        return out, cache
+    pos = positions[:, 0]                              # (B,) current position
+    bidx = torch.arange(B, device=q.device)
+    slot = (pos % L).long()
+    ck[bidx, slot] = k[:, 0]
+    cv[bidx, slot] = v[:, 0]
+    # the reference's _split_decode with one shard: the port has no
+    # sharding policy to split the KV across
+    out = decode_attention(q, ck, cv, q_pos=positions,
+                           k_pos=ring_positions(pos, L), window=window,
+                           softcap_val=cfg.attn_logit_softcap)
+    return out, cache
+
+
 def attention_block(lp, cfg, desc, x, positions, cache, mode, paged):
     """x: (B, S, D); positions (B, S). Returns (attn_out, cache)."""
-    if mode not in ("paged_prefill", "paged_decode"):
-        raise NotImplementedError(f"attention mode {mode!r}: the dense-cache "
-                                  "path is not ported yet (ROADMAP.md "
-                                  "Queue A)")
+    if mode not in ("prefill", "decode", "paged_prefill", "paged_decode"):
+        raise NotImplementedError(f"attention mode {mode!r} is not ported "
+                                  "yet (ROADMAP.md Queue A item 10)")
     B, S, _ = x.shape
     xn = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
     q, k, v = _qkv(lp["attn"], cfg, xn, positions)
-    out, cache = _paged_attention(cfg, q, k, v, positions, cache, mode, paged)
+    if mode in ("prefill", "decode"):
+        out, cache = _dense_attention(cfg, desc, q, k, v, positions, cache,
+                                      mode)
+    else:
+        out, cache = _paged_attention(cfg, q, k, v, positions, cache, mode,
+                                      paged)
     out = out.reshape(B, S, cfg.q_dim) @ lp["attn"]["wo"]
     return out, cache
 
 
 # ------------------------------------------------------------------ layer
 def decoder_layer(lp, cfg, desc, x, positions, cache, mode, placement_row,
-                  source_ids, n_sources, collect_stats=True, paged=None):
+                  source_ids, n_sources, collect_stats=True, paged=None,
+                  ragged=True):
     """Returns (x, cache, stats_or_None)."""
     attn_out, cache = attention_block(lp, cfg, desc, x, positions, cache,
                                       mode, paged)
@@ -341,7 +418,7 @@ def decoder_layer(lp, cfg, desc, x, positions, cache, mode, placement_row,
         y, stats = moe_mod.moe_layer(
             lp["moe"], cfg, xn, placement_row, source_ids=source_ids,
             n_sources=n_sources, collect_stats=collect_stats,
-            token_mask=mask)
+            ragged=ragged, token_mask=mask)
     else:
         y = mlp(lp["mlp"], xn)
     return x + y, cache, stats
@@ -407,7 +484,7 @@ def stage_expert_prefetch(params, cfg, cur_placement, target_placement):
 
 def superblock_forward(blk_params, cfg, descs, x, positions, blk_cache,
                        mode, blk_placement, source_ids, n_sources,
-                       collect_stats, paged=None):
+                       collect_stats, paged=None, ragged=True):
     """One super-block (period of layers). Returns (x, stats (mp, ...))."""
     stats_list = []
     mi = 0
@@ -421,7 +498,8 @@ def superblock_forward(blk_params, cfg, descs, x, positions, blk_cache,
                                       device=x.device))
             mi += 1
         x, _, st = decoder_layer(lp, cfg, desc, x, positions, c, mode, prow,
-                                 source_ids, n_sources, collect_stats, paged)
+                                 source_ids, n_sources, collect_stats, paged,
+                                 ragged)
         if st is not None:
             stats_list.append(st)
     stats = None
@@ -432,9 +510,10 @@ def superblock_forward(blk_params, cfg, descs, x, positions, blk_cache,
 
 
 def _stack_forward(params, cfg, x, positions, cache, mode, placement,
-                   source_ids, n_sources, collect_stats, paged=None):
-    """Loop over super-blocks. x: (B, S, D). The page pool is written in
-    place. Returns (x, cache, stats (ns * mp, ...))."""
+                   source_ids, n_sources, collect_stats, paged=None,
+                   ragged=True):
+    """Loop over super-blocks. x: (B, S, D). The KV cache or page pool is
+    written in place. Returns (x, cache, stats (ns * mp, ...))."""
     descs = period_descriptors(cfg)
     ns = n_super_blocks(cfg)
     mp = len(_moe_positions(descs))
@@ -449,7 +528,7 @@ def _stack_forward(params, cfg, x, positions, cache, mode, placement,
         x, stats = superblock_forward(
             blk_params, cfg, descs, x, positions, blk_cache, mode,
             placement_r[i] if placement_r is not None else None,
-            source_ids, n_sources, collect_stats, paged)
+            source_ids, n_sources, collect_stats, paged, ragged)
         per_block.append(stats)
     stats = None
     if per_block and per_block[0] is not None:
@@ -461,7 +540,8 @@ def _stack_forward(params, cfg, x, positions, cache, mode, placement,
 
 def prefill_chunk_paged(params, cfg: ModelConfig, batch, pages, *,
                         block_tables, placement=None, source_ids=None,
-                        n_sources: int = 0, collect_stats: bool = True):
+                        n_sources: int = 0, collect_stats: bool = True,
+                        ragged: bool = True):
     """Chunked prefill into the paged KV pool.
 
     batch: {tokens (B, S), chunk_starts (B,), chunk_lens (B,)} — row b
@@ -488,7 +568,7 @@ def prefill_chunk_paged(params, cfg: ModelConfig, batch, pages, *,
         placement = identity_placement(cfg, dev)
     x, pages, stats = _stack_forward(
         params, cfg, x, positions, pages, "paged_prefill", placement,
-        source_ids, n_sources, collect_stats, paged=paged)
+        source_ids, n_sources, collect_stats, paged=paged, ragged=ragged)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     last = x[torch.arange(B, device=dev),
              torch.clamp(lens - 1, 0, S - 1).long()]
@@ -497,7 +577,8 @@ def prefill_chunk_paged(params, cfg: ModelConfig, batch, pages, *,
 
 def mixed_step_paged(params, cfg: ModelConfig, batch, pages, *,
                      block_tables, placement=None, source_ids=None,
-                     n_sources: int = 0, collect_stats: bool = True):
+                     n_sources: int = 0, collect_stats: bool = True,
+                     ragged: bool = True):
     """One fused mixed dispatch: prefill chunk lanes AND 1-token decode
     lanes in the same ragged (B, S) batch.
 
@@ -512,13 +593,13 @@ def mixed_step_paged(params, cfg: ModelConfig, batch, pages, *,
     return prefill_chunk_paged(
         params, cfg, batch, pages, block_tables=block_tables,
         placement=placement, source_ids=source_ids, n_sources=n_sources,
-        collect_stats=collect_stats)
+        collect_stats=collect_stats, ragged=ragged)
 
 
 def decode_step_paged(params, cfg: ModelConfig, tokens, pages, lengths, *,
                       block_tables, active=None, placement=None,
                       source_ids=None, n_sources: int = 0,
-                      collect_stats: bool = True):
+                      collect_stats: bool = True, ragged: bool = True):
     """One batched decode token against the paged KV pool.
 
     tokens (B,) int32; lengths (B,) current context per lane (the new token
@@ -540,6 +621,49 @@ def decode_step_paged(params, cfg: ModelConfig, tokens, pages, lengths, *,
         placement = identity_placement(cfg, dev)
     x, pages, stats = _stack_forward(
         params, cfg, x, positions, pages, "paged_decode", placement,
-        source_ids, n_sources, collect_stats, paged=paged)
+        source_ids, n_sources, collect_stats, paged=paged, ragged=ragged)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return lm_logits(params["embed"], cfg, x[:, 0]), pages, stats
+
+
+def prefill(params, cfg: ModelConfig, batch, cache, *, placement=None,
+            source_ids=None, n_sources: int = 0, collect_stats: bool = True,
+            ragged: bool = True):
+    """batch: {tokens (B, S), lengths (B,) optional} -> (logits at each
+    row's last real token (B, V), cache, stats). Positions run 0..S-1; the
+    cache (from :func:`init_cache`) is written in place."""
+    x = embed_tokens(params["embed"], cfg, batch["tokens"])
+    B, S = x.shape[:2]
+    dev = x.device
+    positions = torch.arange(S, dtype=torch.int32, device=dev)[None] \
+        .expand(B, S)
+    if placement is None:
+        placement = identity_placement(cfg, dev)
+    x, cache, stats = _stack_forward(
+        params, cfg, x, positions, cache, "prefill", placement, source_ids,
+        n_sources, collect_stats, ragged=ragged)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    lengths = batch.get("lengths")
+    if lengths is None:
+        last = x[:, -1]
+    else:
+        last = x[torch.arange(B, device=dev),
+                 torch.clamp(lengths.long() - 1, 0, S - 1)]
+    return lm_logits(params["embed"], cfg, last), cache, stats
+
+
+def decode_step(params, cfg: ModelConfig, tokens, cache, lengths, *,
+                placement=None, source_ids=None, n_sources: int = 0,
+                collect_stats: bool = True, ragged: bool = True):
+    """tokens (B,) int32; lengths (B,) current context length per row (the
+    new token is written at position lengths[b]). Every row decodes and
+    every row's routing counts in the statistics, as in the reference."""
+    x = embed_tokens(params["embed"], cfg, tokens[:, None])   # (B, 1, D)
+    positions = lengths.to(torch.int32)[:, None]
+    if placement is None:
+        placement = identity_placement(cfg, x.device)
+    x, cache, stats = _stack_forward(
+        params, cfg, x, positions, cache, "decode", placement, source_ids,
+        n_sources, collect_stats, ragged=ragged)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return lm_logits(params["embed"], cfg, x[:, 0]), cache, stats

@@ -10,6 +10,7 @@ from repro_torch.serving.paged_engine import (PagedEngineConfig,
                                               PagedRealEngine)
 from repro_torch.serving.real_cluster import (RealClusterConfig,
                                               serve_real_cluster)
+from repro_torch.serving.real_engine import RealModelEngine
 from repro_torch.serving.request import Request, RequestState
 from repro_torch.serving.simulator import SimResult
 from repro_torch.serving.step_plan import (PlannerConfig, PrefillLane,
@@ -21,6 +22,7 @@ __all__ = ["CostModelConfig", "EngineCostModel", "SwapCostConfig",
            "TieredSharedAllocator", "BlockPool", "SlotAllocator",
            "GARBAGE_PAGE", "PagedBlockAllocator", "SharedPagedAllocator",
            "PagedEngineConfig", "PagedModelRunner", "PagedRealEngine",
-           "RealClusterConfig", "serve_real_cluster", "SimResult",
+           "RealClusterConfig", "RealModelEngine", "serve_real_cluster",
+           "SimResult",
            "Request", "RequestState", "PlannerConfig", "PrefillLane",
            "StepPlan", "StepPlanner", "check_plan_invariants"]

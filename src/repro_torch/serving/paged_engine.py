@@ -27,7 +27,6 @@ import torch
 
 from repro_torch.core.queue_policy import QueueConfig, order_queue
 from repro_torch.core.traces import EngineTrace
-from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.serving.costmodel import SwapCostModel
 from repro_torch.bridge import tree_leaves, tree_map
@@ -109,8 +108,6 @@ class PagedModelRunner:
                  n_sources: int, ragged_dispatch: Optional[bool] = None):
         if cfg.input_mode != "tokens":
             raise NotImplementedError("paged runtime serves token models")
-        if ragged_dispatch is False:
-            raise NotImplementedError(moe_mod.PADDED_DISPATCH_TODO)
         self.device = torch.device(ecfg.device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("PagedModelRunner: device 'cuda' requested "
@@ -125,6 +122,9 @@ class PagedModelRunner:
         self.params = params
         self.ecfg = ecfg
         self.n_sources = n_sources
+        # MoE dispatch of every call this runner makes: the sort-based
+        # ragged path (default) or the capacity-padded one
+        self.ragged_dispatch = ragged_dispatch is not False
         # (B, S)-bucket padding accounting across every dispatch this
         # runner serves: padded minus real tokens. The cost-aware mixed
         # grouper exists to push waste down; the bench reads these.
@@ -143,7 +143,7 @@ class PagedModelRunner:
             self.params, self.cfg, tokens, pages, lengths,
             block_tables=block_tables, active=active, placement=placement,
             source_ids=source_ids, n_sources=self.n_sources,
-            collect_stats=self.cfg.moe.enabled)
+            collect_stats=self.cfg.moe.enabled, ragged=self.ragged_dispatch)
 
     def prefill_chunk(self, batch, pages, block_tables, placement,
                       source_ids):
@@ -152,7 +152,8 @@ class PagedModelRunner:
         return tfm.prefill_chunk_paged(
             self.params, self.cfg, batch, pages, block_tables=block_tables,
             placement=placement, source_ids=source_ids,
-            n_sources=self.n_sources, collect_stats=self.cfg.moe.enabled)
+            n_sources=self.n_sources, collect_stats=self.cfg.moe.enabled,
+            ragged=self.ragged_dispatch)
 
     def mixed_step(self, batch, pages, block_tables, placement, source_ids):
         """One fused mixed-group dispatch (decode + prefill lanes)."""
@@ -161,7 +162,8 @@ class PagedModelRunner:
         return tfm.mixed_step_paged(
             self.params, self.cfg, batch, pages, block_tables=block_tables,
             placement=placement, source_ids=source_ids,
-            n_sources=self.n_sources, collect_stats=self.cfg.moe.enabled)
+            n_sources=self.n_sources, collect_stats=self.cfg.moe.enabled,
+            ragged=self.ragged_dispatch)
 
     def bucket_for(self, chunk: int) -> int:
         for b in self.ecfg.chunk_buckets:

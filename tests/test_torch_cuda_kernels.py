@@ -155,6 +155,58 @@ def test_moe_gmm_ragged_kernel(cuda, dtype, T, K, E, D, F):
     torch.testing.assert_close(out, ref, rtol=TOL[dtype], atol=TOL[dtype])
 
 
+FLASH_SHAPES = [(4, 4, 4, 64, 512), (4, 8, 2, 128, 300),
+                (8, 32, 4, 128, 1024), (4, 16, 2, 256, 129), (4, 8, 8, 32, 5)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,Hq,Hkv,hd,L", FLASH_SHAPES)
+def test_flash_decode_kernel(cuda, dtype, B, Hq, Hkv, hd, L):
+    """Rows: a ring that wrapped, a prefix cache, masked slots past q_pos,
+    and a row with no valid slot, which must be exact zeros."""
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_plain)
+    from repro_torch.models.attention import ring_positions
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn(B, Hq, hd, generator=g, device=cuda).to(dtype)
+    kc = torch.randn(B, L, Hkv, hd, generator=g, device=cuda).to(dtype)
+    vc = torch.randn(B, L, Hkv, hd, generator=g, device=cuda).to(dtype)
+    write = torch.tensor([3 * L + 2, L // 2, L - 1, 0], device=cuda)
+    write = write.repeat(B // 4)
+    k_pos = ring_positions(write, L)
+    q_pos = write.to(torch.int32).clone()
+    q_pos[1] -= min(2, L // 2)            # slots past q_pos are masked
+    k_pos[3] = -1                         # no valid slot at all
+    before = flash_decode.launches
+    out = flash_decode(q, kc, vc, k_pos, q_pos)
+    assert flash_decode.launches == before + 1
+    ref = flash_decode_plain(q, kc, vc, k_pos, q_pos)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype
+    assert torch.equal(out[3], torch.zeros_like(out[3]))
+    torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("E,C,D,F", [
+    (128, 4, 2048, 768),       # the decode regroup's capacity
+    (16, 71, 256, 96),         # a prefill capacity (C=71), three row tiles
+    (5, 13, 37, 131), (3, 33, 70, 9), (2, 1, 8, 1)])   # odd C, D and F
+def test_moe_gmm_kernel(cuda, dtype, E, C, D, F):
+    from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_plain
+    g = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.randn(E, C, D, generator=g, device=cuda).to(dtype)
+    w = (torch.randn(E, D, F, generator=g, device=cuda) / D ** 0.5).to(dtype)
+    before = moe_gmm.launches
+    out = moe_gmm(x, w)
+    assert moe_gmm.launches == before + 1
+    ref = moe_gmm_plain(x, w)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and out.shape == (E, C, F)
+    torch.testing.assert_close(out, ref, rtol=TOL[dtype], atol=TOL[dtype])
+
+
 @pytest.mark.parametrize("T,K,E,S", [(1, 1, 8, 2), (2048, 1, 128, 2),
                                      (300, 8, 128, 4), (5000, 2, 64, 8)])
 def test_source_expert_count_kernel(cuda, T, K, E, S):
@@ -172,7 +224,8 @@ def test_source_expert_count_kernel(cuda, T, K, E, S):
 
 
 def test_wrappers_raise_on_bad_input(cuda):
-    from repro_torch.kernels.moe_gmm import moe_gmm_ragged
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_ragged
     from repro_torch.kernels.paged_decode import paged_decode
     q = torch.zeros(2, 4, 16, device=cuda)
     kp = torch.zeros(3, 8, 2, 16, device=cuda)
@@ -193,3 +246,12 @@ def test_wrappers_raise_on_bad_input(cuda):
     meta = [torch.zeros(n, dtype=torch.int32, device=cuda) for n in (2, 2, 3)]
     with pytest.raises(ValueError, match="multiple of 8"):
         moe_gmm_ragged(x, w, *meta, n_block=4)
+    with pytest.raises(ValueError, match="x "):
+        moe_gmm(x[None], w[:1, :4])
+    with pytest.raises(TypeError, match="dtype"):
+        moe_gmm(x[None], w[:1].half())
+    kc = torch.zeros(2, 8, 2, 16, device=cuda)
+    with pytest.raises(ValueError, match="k_pos"):
+        flash_decode(q, kc, kc, ctx[:, None], ctx)
+    with pytest.raises(TypeError, match="int32"):
+        flash_decode(q, kc, kc, bt.repeat(1, 4), ctx)

@@ -27,6 +27,11 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "import repro_torch.core, repro_torch.ft\n"
         "import repro_torch.serving.real_cluster\n"
         "import repro_torch.kernels.kv_pack\n"
+        "import repro_torch.kernels.flash_decode, repro_torch.models.api\n"
+        "import repro_torch.serving.real_engine\n"
+        "from repro_torch.configs import get_config, get_smoke_config\n"
+        "get_config('qwen3-moe-30b-a3b'), "
+        "get_smoke_config('qwen3-moe-30b-a3b')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'msgpack', 'zstandard'))\n"
         "print(bad)\n"
@@ -40,11 +45,20 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
 def test_no_source_file_imports_jax_or_the_reference():
     bad = re.compile(r"^\s*(import jax|from jax|from repro\.|import repro\b"
                      r"(?!_torch)|import (msgpack|zstandard)|"
-                     r"from (msgpack|zstandard))", re.M)
+                     r"from (msgpack|zstandard))|"
+                     r"import_module\(f?[\"']repro\.", re.M)
     files = list(PORT.rglob("*.py")) + [SRC.parent / "chip_smoke.py"]
     assert len(files) > 10
     for f in files:
         assert not bad.search(f.read_text()), f
+
+
+def test_config_registry_loads_the_ports_own_configs():
+    from repro_torch.configs import ModelConfig, get_config, get_smoke_config
+    for cfg in (get_config("qwen3-moe-30b-a3b"),
+                get_smoke_config("qwen3-moe-30b-a3b")):
+        assert type(cfg) is ModelConfig
+        assert type(cfg).__module__ == "repro_torch.configs.base"
 
 
 def _tiny():
@@ -100,23 +114,42 @@ def test_int8_pages_serve_on_the_cpu():
     assert engine.pages["pos0"]["k_scale"].abs().sum() > 0
 
 
-def test_padded_dispatch_is_not_served_yet():
+def test_padded_dispatch_serves_on_the_cpu():
     cfg, params = _tiny()
-    with pytest.raises(NotImplementedError, match="padded"):
-        PagedModelRunner(cfg, params, PagedEngineConfig(device="cpu"),
-                         n_sources=2, ragged_dispatch=False)
+    runner = PagedModelRunner(cfg, params, PagedEngineConfig(device="cpu"),
+                              n_sources=2, ragged_dispatch=False)
+    assert runner.ragged_dispatch is False
     moe_p = {k: v[0] for k, v in params["blocks"]["pos0"]["moe"].items()}
-    x = torch.zeros(1, 2, cfg.d_model)
+    x = torch.randn(2, 3, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(1))
     placement = torch.arange(cfg.moe.n_experts, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="padded"):
-        tmoe.moe_layer(moe_p, cfg, x, placement, ragged=False)
-    y, _ = tmoe.moe_layer(moe_p, cfg, x, placement)
-    assert y.shape == x.shape
+    y, st = tmoe.moe_layer(moe_p, cfg, x, placement, ragged=False)
+    assert y.shape == x.shape and torch.isfinite(y).all()
+    assert int(st["expert_counts"].sum()) == 6 * cfg.moe.top_k
+    # with a capacity nothing overflows, the padded path drops no token and
+    # gives the dropless ragged path's output
+    y_wide, _ = tmoe.moe_layer(moe_p, cfg, x, placement, ragged=False,
+                               capacity_factor=64.0)
+    y_ragged, _ = tmoe.moe_layer(moe_p, cfg, x, placement)
+    torch.testing.assert_close(y_wide, y_ragged, rtol=1e-5, atol=1e-5)
+
+
+def test_dense_engine_without_device_does_not_fall_back_to_the_cpu():
+    from repro_torch.serving import RealModelEngine
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device: the default runs there")
+    cfg, params = _tiny()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        RealModelEngine(0, cfg, params)
+    with pytest.raises(ValueError, match="params live on"):
+        RealModelEngine(0, cfg, {"w": torch.empty(2, device="meta")},
+                        device="cpu")
 
 
 def test_kernel_wrappers_refuse_other_devices():
     from repro_torch.kernels.kv_pack import pack_kv, unpack_kv
-    from repro_torch.kernels.moe_gmm import moe_gmm_ragged
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_ragged
     from repro_torch.kernels.paged_decode import paged_decode
     from repro_torch.kernels.source_expert_count import source_expert_count
     m = torch.empty(1, 1, 1, device="meta")
@@ -124,6 +157,10 @@ def test_kernel_wrappers_refuse_other_devices():
         paged_decode(m, m, m, m, m)
     with pytest.raises(ValueError, match="no kernel"):
         moe_gmm_ragged(m[0], m, m, m, m, n_block=8)
+    with pytest.raises(ValueError, match="no kernel"):
+        moe_gmm(m, m)
+    with pytest.raises(ValueError, match="no kernel"):
+        flash_decode(m, m[None], m[None], m[0], m[0, 0])
     with pytest.raises(ValueError, match="no kernel"):
         source_expert_count(m[0], m, n_experts=1, n_sources=1)
     with pytest.raises(ValueError, match="no kernel"):

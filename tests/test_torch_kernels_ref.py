@@ -2,7 +2,8 @@
 same numpy inputs (Pallas in interpret mode, as the reference's own tests
 run it), and the wrappers' CPU routing.
 
-Tolerances: float outputs within 1e-5 (f32); integer outputs exact."""
+Tolerances: float outputs within 1e-5 (f32) and 3e-2 (bf16); integer
+outputs exact."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -10,10 +11,17 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels.flash_decode import flash_decode as j_flash_decode
+from repro.kernels.moe_gmm import moe_gmm as j_moe_gmm
 from repro.kernels.moe_dispatch import pick_row_block as j_pick_row_block
 from repro.kernels.moe_dispatch import ragged_dispatch as j_ragged_dispatch
 from repro.kernels.paged_decode import paged_decode_pallas, paged_decode_xla
-from repro_torch.kernels.moe_gmm import moe_gmm_ragged, moe_gmm_ragged_plain
+from repro.models.attention import ring_positions as j_ring_positions
+from repro_torch.bridge import params_from_numpy
+from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
+from repro_torch.kernels.moe_gmm import (moe_gmm, moe_gmm_plain,
+                                         moe_gmm_ragged, moe_gmm_ragged_plain)
+from repro_torch.models.attention import ring_positions
 from repro_torch.kernels.paged_decode import paged_decode, paged_decode_plain
 from repro_torch.kernels.source_expert_count import (
     source_expert_count, source_expert_count_plain)
@@ -120,3 +128,70 @@ def test_source_expert_count_plain_is_exact(T, K, E, S):
     b2, a2 = source_expert_count(_t(ids), _t(src), n_experts=E, n_sources=S)
     assert torch.equal(b2, b) and torch.equal(a2, a)
     assert source_expert_count.launches == before
+
+
+def _tt(a):
+    """A JAX array (bf16 included) as a CPU tensor of the same bits."""
+    return params_from_numpy(np.asarray(a), device="cpu")
+
+
+@pytest.mark.parametrize("dtype,tol", [(jnp.float32, 1e-5),
+                                       (jnp.bfloat16, 3e-2)])
+@pytest.mark.parametrize("B,Hq,Hkv,hd,L", [
+    (4, 4, 4, 64, 512), (4, 8, 4, 64, 1024), (4, 8, 2, 128, 256),
+    (4, 32, 4, 128, 128),      # the served model's heads
+])
+def test_flash_decode_plain_matches_reference(B, Hq, Hkv, hd, L, dtype, tol):
+    """Rows: a prefix cache, a wrapped ring, a ring not yet full, and a row
+    with no valid slot (exact zeros, as the Pallas kernel gives)."""
+    rng = np.random.default_rng(B * L + hd)
+    q = jnp.asarray(rng.normal(size=(B, Hq, hd)), dtype)
+    kc = jnp.asarray(rng.normal(size=(B, L, Hkv, hd)), dtype)
+    vc = jnp.asarray(rng.normal(size=(B, L, Hkv, hd)), dtype)
+    write = np.array([L // 3, 2 * L + 5, L - 1, 7], np.int32)
+    kpos = np.array(j_ring_positions(jnp.asarray(write), L))
+    np.testing.assert_array_equal(
+        ring_positions(torch.from_numpy(write), L).numpy(), kpos)
+    qpos = write.copy()
+    qpos[0] -= 10                 # slots past q_pos are masked too
+    kpos[3] = -1                  # no valid slot at all
+    jk, jq = jnp.asarray(kpos), jnp.asarray(qpos)
+    pallas = np.asarray(j_flash_decode(q, kc, vc, jk, jq, l_block=128,
+                                       interpret=True), np.float32)
+    oracle = np.asarray(jref.flash_decode_ref(q, kc, vc, jk, jq), np.float32)
+    args = (_tt(q), _tt(kc), _tt(vc), torch.from_numpy(kpos),
+            torch.from_numpy(qpos))
+    out = flash_decode_plain(*args)
+    assert out.dtype == args[0].dtype
+    out = out.float().numpy()
+    np.testing.assert_allclose(out, pallas, rtol=tol, atol=tol)
+    # the oracle softmaxes an all-masked row into the mean of V; the kernel
+    # (and so the port) gives zeros there
+    np.testing.assert_allclose(out[:3], oracle[:3], rtol=tol, atol=tol)
+    assert (out[3] == 0).all() and (pallas[3] == 0).all()
+    before = flash_decode.launches
+    assert torch.equal(flash_decode(*args).float(), torch.from_numpy(out))
+    assert flash_decode.launches == before
+
+
+@pytest.mark.parametrize("dtype,tol", [(jnp.float32, 1e-5),
+                                       (jnp.bfloat16, 3e-2)])
+@pytest.mark.parametrize("E,C,D,F", [
+    (2, 37, 100, 130), (3, 5, 64, 96), (4, 13, 200, 72),   # odd dims
+    (8, 4, 64, 48),            # the decode-regroup capacity C = 4
+])
+def test_moe_gmm_plain_matches_reference(E, C, D, F, dtype, tol):
+    rng = np.random.default_rng(E * C + D)
+    x = jnp.asarray(rng.normal(size=(E, C, D)), dtype)
+    w = jnp.asarray(rng.normal(size=(E, D, F)) / np.sqrt(D), dtype)
+    ref = np.asarray(j_moe_gmm(x, w, c_block=32, f_block=128, d_block=64,
+                               interpret=True))
+    args = (_tt(x), _tt(w))
+    out = moe_gmm_plain(*args)
+    assert out.dtype == torch.float32 and tuple(out.shape) == (E, C, F)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=tol, atol=tol)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jops.moe_gmm(x, w)),
+                               rtol=tol, atol=tol)
+    before = moe_gmm.launches
+    assert torch.equal(moe_gmm(*args), out)
+    assert moe_gmm.launches == before
