@@ -6,7 +6,8 @@
 2. holds each kernel against its plain PyTorch version on the card, at the
    shapes the serving path gives it, and times both (CUDA events, L2
    flushed before every launch), and the one PyTorch call that computes the
-   same function where there is one;
+   same function where there is one; for the two expert GEMMs it prints
+   the route each shape took (tensor cores or CUDA cores);
 3. checks the port end to end on a small input: a float32 twin of the
    model served on the card through the kernels and on the CPU through the
    plain versions must give the same token streams and statistics, on one
@@ -37,7 +38,8 @@
 
 The kernel launch counters are set to 0 just before each serve of steps 4,
 6 and 7 and read just after; each serve fails if a kernel of its path was
-not launched.
+not launched, or if a bf16 launch of an expert GEMM at full width took the
+CUDA cores instead of the tensor cores.
 
 Any failure raises, and the script exits non-zero. It never runs on the
 CPU: without a CUDA device it exits with an error before doing anything.
@@ -169,6 +171,10 @@ def dispatch_layout(T, K, E, D, dtype, g):
     return ragged_dispatch(x, ids, E, row_block=nb)
 
 
+def gmm_route(tc_launched: int) -> str:
+    return "tensor cores" if tc_launched else "CUDA cores"
+
+
 def check_gmm(timer, dtype, T, D, F, which):
     from repro_torch.kernels.moe_gmm import (moe_gmm_ragged,
                                              moe_gmm_ragged_plain)
@@ -180,7 +186,9 @@ def check_gmm(timer, dtype, T, D, F, which):
     args = (disp.xs, w, disp.tile_expert, disp.group_sizes,
             disp.padded_offsets)
     nb = disp.row_block
+    tc_before = moe_gmm_ragged.tc_launches
     out = moe_gmm_ragged(*args, n_block=nb)
+    route = gmm_route(moe_gmm_ragged.tc_launches - tc_before)
     ref = moe_gmm_ragged_plain(*args, n_block=nb)
     torch.cuda.synchronize()
     err = max_err(out, ref)
@@ -203,7 +211,7 @@ def check_gmm(timer, dtype, T, D, F, which):
             "plain_ms": timer(lambda: moe_gmm_ragged_plain(*args,
                                                            n_block=nb)),
             "bound": bound_ms(nbytes, ops, str(dtype).split(".")[1]),
-            "library_ms": lib}
+            "library_ms": lib, "route": route}
 
 
 def check_flash_decode(timer, dtype):
@@ -268,7 +276,9 @@ def check_padded_gmm(timer, dtype, E, C, D, F, which):
     x = torch.randn(E, C, D, generator=g, device="cuda").to(dtype)
     w = (torch.randn(E, D, F, generator=g, device="cuda")
          / np.sqrt(D)).to(dtype)
+    tc_before = moe_gmm.tc_launches
     out = moe_gmm(x, w)
+    route = gmm_route(moe_gmm.tc_launches - tc_before)
     ref = moe_gmm_plain(x, w)
     torch.cuda.synchronize()
     err = max_err(out, ref)
@@ -282,7 +292,7 @@ def check_padded_gmm(timer, dtype, E, C, D, F, which):
             "plain_ms": timer(lambda: moe_gmm_plain(x, w)),
             "bound": bound_ms(nbytes, 2.0 * E * C * D * F,
                               str(dtype).split(".")[1]),
-            "library_ms": timer(lambda: torch.bmm(x, w))}
+            "library_ms": timer(lambda: torch.bmm(x, w)), "route": route}
 
 
 def check_stats(timer, T, K):
@@ -386,10 +396,11 @@ def kernel_phase():
         ok = r["err"] <= tol
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
+        route = f"route {r['route']}, " if "route" in r else ""
         log(f"kernel {kname} [{dt}] {r['shape']}: max_abs_err "
             f"{r['err']:.3g} (tolerance {tol:g}) {'ok' if ok else 'FAIL'}; "
-            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
-            f"{r['bound'][0]:.4f} ms ({r['bound'][1]}), library {lib}")
+            f"{route}kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), library {lib}")
         if not ok:
             raise AssertionError(f"{kname} [{dt}] disagrees with its plain "
                                  f"version: {r['err']} > {tol}")
@@ -427,6 +438,35 @@ def kernel_phase():
 
 
 # ------------------------------------------------------------------ serving
+def reset_counts(counters):
+    """Every launch counter of ``counters`` (and the GMMs' tensor-core
+    counters) to 0, just before a serve."""
+    for fn in counters.values():
+        fn.launches = 0
+        if hasattr(fn, "tc_launches"):
+            fn.tc_launches = 0
+
+
+def read_counts(counters):
+    """(launches, tensor-core launches of the expert GEMMs), just after a
+    serve."""
+    return ({name: fn.launches for name, fn in counters.items()},
+            {name: fn.tc_launches for name, fn in counters.items()
+             if hasattr(fn, "tc_launches")})
+
+
+def check_gmm_routes(phase, launches, tc, main):
+    """At full width in bf16 every expert-GEMM launch takes the tensor
+    cores: the path's GMM ``main`` launched there, none on the CUDA cores."""
+    for name, n_tc in tc.items():
+        if launches[name] - n_tc:
+            raise AssertionError(f"{phase}: {name} took the CUDA cores "
+                                 f"{launches[name] - n_tc} times at full "
+                                 f"width in bf16")
+    if tc[main] <= 0:
+        raise AssertionError(f"{phase}: {main} never took the tensor cores")
+
+
 def make_requests(cfg, n, lo, hi, max_new, seed, gap=0.001):
     from repro_torch.serving import Request
     rng = np.random.default_rng(seed)
@@ -653,6 +693,17 @@ def profiled(label, run):
     log(f"profile {label}: {what} in {wall * 1e3:.1f} ms wall (profiled), "
         f"device busy {busy_ms:.1f} ms = "
         f"{100 * busy_ms / (wall * 1e3):.1f}% of the wall time")
+    gmm = [r for r in rows if "gmm_" in r[2]]     # both GEMMs, both routes
+
+    def short(key):        # "void (anonymous namespace)::gmm_x<1, 1>(...)"
+        return key[key.index("gmm_"):].split("(")[0]
+
+    gmm_ms = sum(r[0] for r in gmm) / 1e3
+    parts = ", ".join(f"{short(k)} {us / 1e3:.1f} ms / {n}"
+                      for us, n, k in sorted(gmm, reverse=True))
+    log(f"profile {label}: expert GEMM kernels {gmm_ms:.1f} ms in "
+        f"{sum(r[1] for r in gmm)} launches = "
+        f"{100 * gmm_ms / busy_ms:.1f}% of the device time ({parts})")
     for us, n, key in sorted(rows, reverse=True)[:12]:
         log(f"profile {label}:   {us / 1e3:9.2f} ms  {n:6d} calls  "
             f"{key[:90]}")
@@ -684,10 +735,9 @@ def serve_phase(args, counters):
     new_tokens = 32
     reqs = make_requests(cfg, 8, 100, 900, new_tokens, seed=args.seed)
 
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counts(counters)
     engines, steps, wall, stats = serve(cfg, params, ecfg, reqs)
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches, tc = read_counts(counters)
 
     done = [r for r in reqs if r.finish_time >= 0 and not r.error]
     if len(done) != len(reqs):
@@ -700,6 +750,7 @@ def serve_phase(args, counters):
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched while "
                                  "serving")
+    check_gmm_routes("serve", launches, tc, "moe_gmm_ragged")
     K = cfg.moe.top_k
     for e, (B, A) in zip(engines, stats):
         routed = e.total_prefill_tokens + e.total_decode_tokens
@@ -720,7 +771,8 @@ def serve_phase(args, counters):
         f"{len(steps)} engine steps, mean step {np.mean(steps) * 1e3:.1f} ms, "
         f"on {torch.cuda.get_device_name(0)}")
     log(f"serve: B per layer = routed tokens x top-{K} and A summed over "
-        f"sources = B on both engines; launches {launches}")
+        f"sources = B on both engines; launches {launches}, on the tensor "
+        f"cores {tc}")
 
     # full-width logits straight from an entry point: finite, right shape
     pages = tfm.init_paged_cache(cfg, 9, 16, device="cuda")
@@ -747,7 +799,7 @@ def serve_phase(args, counters):
         return f"{len(steps)} engine steps"
 
     profiled("serve", again)
-    return launches, cfg, params
+    return launches, tc, cfg, params
 
 
 def cluster_phase(args, cfg, params, counters):
@@ -769,15 +821,14 @@ def cluster_phase(args, cfg, params, counters):
     # experts' weights through this function, once per shared runner
     moves = []
     migrate = timed_migrations(tfm, moves)
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counts(counters)
     try:
         res, engines, wall = serve_cluster(
             cfg, params, ecfg, reqs, window_tokens=1024,
             placement_cfg=PlacementConfig.uncalibrated())
     finally:
         tfm.migrate_params_for_placement = migrate
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches, tc = read_counts(counters)
 
     sig = res.signals
     bad = [r.req_id for r in reqs if r.error or r.finish_time < 0
@@ -796,6 +847,7 @@ def cluster_phase(args, cfg, params, counters):
         if n <= 1:
             raise AssertionError(f"cluster: kernel {name} launched {n} "
                                  "times")
+    check_gmm_routes("cluster", launches, tc, "moe_gmm_ragged")
     prompt = sum(r.prompt_len for r in reqs)
     gen_tok = sum(len(r.full_output_tokens) for r in reqs)
     fp = tfm.paged_cache_page_nbytes(
@@ -817,8 +869,9 @@ def cluster_phase(args, cfg, params, counters):
         f"{[round(t * 1e3, 1) for t in moves]}, kv_peak {sig['kv_peak']:.4f}")
     log(f"cluster: int8 pool holds {fp / i8:.4f}x the tokens per byte of "
         f"the bf16 pool ({i8} against {fp} bytes per page across "
-        f"{cfg.n_layers} layers); launches {launches}")
-    return launches
+        f"{cfg.n_layers} layers); launches {launches}, on the tensor cores "
+        f"{tc}")
+    return launches, tc
 
 
 def timed_migrations(tfm, moves):
@@ -851,8 +904,7 @@ def dense_cluster_phase(args, cfg, params, counters):
                          gap=0.1)
     moves = []
     migrate = timed_migrations(tfm, moves)
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counts(counters)
     try:
         res, engines, wall, kv_peak = serve_dense_cluster(
             cfg, params, reqs, device="cuda", ragged=False,
@@ -860,7 +912,7 @@ def dense_cluster_phase(args, cfg, params, counters):
             placement_cfg=PlacementConfig.uncalibrated())
     finally:
         tfm.migrate_params_for_placement = migrate
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches, tc = read_counts(counters)
 
     sig = res.signals
     bad = [r.req_id for r in reqs if r.error or r.finish_time < 0
@@ -880,6 +932,7 @@ def dense_cluster_phase(args, cfg, params, counters):
         if launches[name] <= 1:
             raise AssertionError(f"dense cluster: kernel {name} launched "
                                  f"{launches[name]} times")
+    check_gmm_routes("dense cluster", launches, tc, "moe_gmm")
     steps = sum(e.step_count for e in engines)
     prompt = sum(r.prompt_len for r in reqs)
     gen_tok = sum(len(r.full_output_tokens) for r in reqs)
@@ -901,7 +954,7 @@ def dense_cluster_phase(args, cfg, params, counters):
         f"(peak token occupancy of the dense caches in the engines' traces; "
         f"the cluster's own kv_peak reads page pools: "
         f"{sig['kv_peak']:.4f}), dense caches {cache_mib:.1f} MiB in all; "
-        f"launches {launches}")
+        f"launches {launches}, on the tensor cores {tc}")
     del res, engines               # their migrated weights: 2 x 10.5 GiB
 
     def again():
@@ -915,7 +968,7 @@ def dense_cluster_phase(args, cfg, params, counters):
                 f"{sum(e.step_count for e in engines)} decode steps")
 
     profiled("dense cluster", again)
-    return launches
+    return launches, tc
 
 
 def main() -> int:
@@ -961,18 +1014,20 @@ def main() -> int:
     counters = {"paged_decode": paged_decode,
                 "moe_gmm_ragged": moe_gmm_ragged,
                 "source_expert_count": source_expert_count}
-    serve_launches, cfg, params = serve_phase(args, counters)
+    serve_launches, serve_tc, cfg, params = serve_phase(args, counters)
     phase_done("serve (with its profiled rerun)")
     counters.update(pack_kv=pack_kv, unpack_kv=unpack_kv)
-    launches = cluster_phase(args, cfg, params, counters)
+    launches, cluster_tc = cluster_phase(args, cfg, params, counters)
     phase_done("cluster")
     counters.update(flash_decode=flash_decode, moe_gmm=moe_gmm)
-    dense_launches = dense_cluster_phase(args, cfg, params, counters)
+    dense_launches, dense_tc = dense_cluster_phase(args, cfg, params,
+                                                   counters)
     phase_done("dense cluster (with its profiled rerun)")
     # each kernel's main-path count: the dense cluster serve for the two
     # kernels of the dense plane, the paged cluster serve for the others
     main_launches = dict(launches, flash_decode=dense_launches["flash_decode"],
                          moe_gmm=dense_launches["moe_gmm"])
+    main_tc = dict(cluster_tc, moe_gmm=dense_tc["moe_gmm"])
 
     meta = {
         "paged_decode": ("src/repro_torch/csrc/paged_decode.cu",
@@ -993,6 +1048,13 @@ def main() -> int:
     kernels = []
     for name, rows in results.items():
         main_row = rows[0][1]          # bf16 at the first serving shape
+        gmm = {}
+        if name in main_tc:            # the expert GEMMs' routes
+            gmm = {"tc_launches": main_tc[name],
+                   "tc_launches_by_path": {
+                       "serve": serve_tc.get(name, 0),
+                       "cluster_serve": cluster_tc.get(name, 0),
+                       "dense_cluster_serve": dense_tc[name]}}
         kernels.append({
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1], "launches": main_launches[name],
@@ -1005,11 +1067,13 @@ def main() -> int:
             "bound_ms": main_row["bound"][0],
             "bound_by": main_row["bound"][1],
             "library_ms": main_row["library_ms"],
-            "shape": main_row["shape"],
+            "shape": main_row["shape"], **gmm,
             "shapes": [{"dtype": dt, "shape": r["shape"], "err": r["err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-                        "library_ms": r["library_ms"]} for dt, r in rows],
+                        "library_ms": r["library_ms"],
+                        **({"gmm_route": r["route"]} if "route" in r
+                           else {})} for dt, r in rows],
         })
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -13,13 +13,40 @@
   0, and so do rows past the group's real size. Output ``(Np, F)`` is f32.
 
 Each wrapper launches its entry point of ``csrc/moe_gmm.cu`` on a CUDA
-tensor and runs its ``*_plain`` version on a CPU tensor.
+tensor and runs its ``*_plain`` version on a CPU tensor. On the card a
+launch takes one of two routes, chosen by ``tc_eligible`` from the dtype,
+the widths and the pointers alone: bf16 on the tensor cores
+(``csrc/gmm_tile.cuh``), or the CUDA cores for f32 inputs and for bf16
+shapes the tensor-core tiles cannot take. ``launches`` counts every launch
+of a wrapper, ``tc_launches`` those on the tensor cores.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ops
+
+
+TC_CODE = 2          # the entry points' dtype code of the tensor-core route
+
+
+def tc_eligible(dtype, D: int, F: int, *ptrs: int) -> bool:
+    """Whether a launch of either GMM takes the tensor-core route: bf16
+    inputs, a depth D > 0 and D and the width F multiples of 8 (16-byte
+    chunks of a row never straddle an edge, and the weights' rows meet the
+    TMA's stride rule) and every pointer 16-byte aligned. f32 stays on the
+    CUDA cores by rule: its float32 twins must match the CPU to 1e-4, which
+    TF32 would not."""
+    return (dtype == torch.bfloat16 and D > 0 and D % 8 == 0
+            and F % 8 == 0 and all(p % 16 == 0 for p in ptrs))
+
+
+def _route_code(x, w, out) -> int:
+    D, F = w.shape[-2:]
+    if tc_eligible(x.dtype, D, F, x.data_ptr(), w.data_ptr(),
+                   out.data_ptr()):
+        return TC_CODE
+    return ops.DTYPE_CODE[x.dtype]
 
 
 def moe_gmm_plain(x, w):
@@ -45,13 +72,16 @@ def moe_gmm(x, w):
     E, C, D = x.shape
     F = w.shape[-1]
     out = torch.empty((E, C, F), dtype=torch.float32, device=x.device)
+    code = _route_code(x, w, out)
     ops.launch("moe_gmm_padded", x.data_ptr(), w.data_ptr(), out.data_ptr(),
-               E, C, D, F, ops.DTYPE_CODE[x.dtype], device=x.device)
+               E, C, D, F, code, device=x.device)
     moe_gmm.launches += 1
+    moe_gmm.tc_launches += code == TC_CODE
     return out
 
 
 moe_gmm.launches = 0
+moe_gmm.tc_launches = 0
 
 
 def moe_gmm_ragged_plain(x, w, tile_expert, group_sizes, padded_offsets, *,
@@ -110,12 +140,14 @@ def moe_gmm_ragged(x, w, tile_expert, group_sizes, padded_offsets, *,
     ops.check_int32("moe_gmm_ragged", meta)
     ops.check_cuda("moe_gmm_ragged", {"x": x, "w": w, **meta}, x.device)
     out = torch.empty((Np, F), dtype=torch.float32, device=x.device)
+    code = _route_code(x, w, out)
     ops.launch("moe_gmm", x.data_ptr(), w.data_ptr(), tile_expert.data_ptr(),
                group_sizes.data_ptr(), padded_offsets.data_ptr(),
-               out.data_ptr(), Np, D, F, E, nb, ops.DTYPE_CODE[x.dtype],
-               device=x.device)
+               out.data_ptr(), Np, D, F, E, nb, code, device=x.device)
     moe_gmm_ragged.launches += 1
+    moe_gmm_ragged.tc_launches += code == TC_CODE
     return out
 
 
 moe_gmm_ragged.launches = 0
+moe_gmm_ragged.tc_launches = 0

@@ -6,7 +6,11 @@ any other host every test here skips.
 
 Tolerances: f32 within 1e-4, bf16 within 3e-2 (sums taken in another
 order), integer outputs exact; the int8 pack and unpack bit-exact (same
-IEEE division, same round-half-to-even, one rounding each)."""
+IEEE division, same round-half-to-even, one rounding each). The expert
+GEMMs also check which route each launch took (the tensor cores for bf16
+with widths that are multiples of 8 and aligned pointers, else the CUDA
+cores) and, on the tensor cores, that a row's result is bitwise the same
+whatever else its expert holds."""
 import numpy as np
 import pytest
 import torch
@@ -126,10 +130,17 @@ def test_unpack_kv_kernel(cuda, dtype, shape):
     assert out.dtype == dtype and torch.equal(out, ref)
 
 
+def _tc_route(dtype, D, F):
+    """The GMM route a launch on fresh (aligned) tensors must take."""
+    return dtype == torch.bfloat16 and D % 8 == 0 and F % 8 == 0
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("T,K,E,D,F", [
+    (8, 8, 128, 2048, 768), (8, 8, 128, 768, 2048),     # serving decode
+    (256, 8, 128, 2048, 768), (256, 8, 128, 768, 2048),  # serving prefill
     (8, 8, 128, 256, 96), (64, 2, 8, 64, 40), (700, 8, 16, 128, 200),
-    (3, 1, 4, 72, 130)])
+    (3, 1, 4, 72, 130)])                    # F % 8 != 0: the CUDA cores
 def test_moe_gmm_ragged_kernel(cuda, dtype, T, K, E, D, F):
     from repro_torch.kernels.moe_dispatch import (pick_row_block,
                                                   ragged_dispatch)
@@ -147,7 +158,10 @@ def test_moe_gmm_ragged_kernel(cuda, dtype, T, K, E, D, F):
     pad[d.dest.long()] = False
     xs[pad] = 7.0
     args = (xs, w, d.tile_expert, d.group_sizes, d.padded_offsets)
+    before = (moe_gmm_ragged.launches, moe_gmm_ragged.tc_launches)
     out = moe_gmm_ragged(*args, n_block=d.row_block)
+    assert (moe_gmm_ragged.launches, moe_gmm_ragged.tc_launches) == (
+        before[0] + 1, before[1] + _tc_route(dtype, D, F))
     ref = moe_gmm_ragged_plain(*args, n_block=d.row_block)
     torch.cuda.synchronize()
     assert out.dtype == torch.float32
@@ -191,20 +205,90 @@ def test_flash_decode_kernel(cuda, dtype, B, Hq, Hkv, hd, L):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("E,C,D,F", [
     (128, 4, 2048, 768),       # the decode regroup's capacity
-    (16, 71, 256, 96),         # a prefill capacity (C=71), three row tiles
+    (128, 4, 768, 2048),
+    (128, 71, 2048, 768),      # a 900-token prefill's capacity (C=71)
+    (128, 71, 768, 2048),
+    (16, 71, 256, 96),         # C=71 at a small width
+    (4, 200, 256, 136),        # C > 128: two row tiles of one panel
     (5, 13, 37, 131), (3, 33, 70, 9), (2, 1, 8, 1)])   # odd C, D and F
 def test_moe_gmm_kernel(cuda, dtype, E, C, D, F):
     from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_plain
     g = torch.Generator(device=cuda).manual_seed(8)
     x = torch.randn(E, C, D, generator=g, device=cuda).to(dtype)
     w = (torch.randn(E, D, F, generator=g, device=cuda) / D ** 0.5).to(dtype)
-    before = moe_gmm.launches
+    before = (moe_gmm.launches, moe_gmm.tc_launches)
     out = moe_gmm(x, w)
-    assert moe_gmm.launches == before + 1
+    assert (moe_gmm.launches, moe_gmm.tc_launches) == (
+        before[0] + 1, before[1] + _tc_route(dtype, D, F))
     ref = moe_gmm_plain(x, w)
     torch.cuda.synchronize()
     assert out.dtype == torch.float32 and out.shape == (E, C, F)
     torch.testing.assert_close(out, ref, rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_moe_gmm_unaligned_takes_cuda_cores(cuda):
+    """bf16 at a serving width, but x 2 bytes off a 16-byte boundary: the
+    tensor-core route's 16-byte copies cannot take it, the CUDA cores do."""
+    from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_plain
+    g = torch.Generator(device=cuda).manual_seed(9)
+    E, C, D, F = 4, 5, 256, 128
+    buf = torch.randn(E * C * D + 1, generator=g, device=cuda).bfloat16()
+    x = buf[1:].view(E, C, D)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    w = (torch.randn(E, D, F, generator=g, device=cuda) / D ** 0.5).bfloat16()
+    before = (moe_gmm.launches, moe_gmm.tc_launches)
+    out = moe_gmm(x, w)
+    assert (moe_gmm.launches, moe_gmm.tc_launches) == (before[0] + 1,
+                                                       before[1])
+    torch.testing.assert_close(out, moe_gmm_plain(x, w), rtol=3e-2,
+                               atol=3e-2)
+
+
+@pytest.mark.parametrize("C", [1, 4, 20, 40, 71, 100, 200])
+def test_moe_gmm_batch_invariant(cuda, C):
+    """bf16 on the tensor cores: the first rows of an expert's buffer give
+    bitwise the same outputs whatever the capacity C (so whatever row tile
+    the launch picks) and whatever fills the other rows."""
+    from repro_torch.kernels.moe_gmm import moe_gmm
+    g = torch.Generator(device=cuda).manual_seed(10)
+    E, D, F = 2, 2048, 768
+    x = torch.randn(E, 200, D, generator=g, device=cuda).bfloat16()
+    w = (torch.randn(E, D, F, generator=g, device=cuda) / D ** 0.5).bfloat16()
+    full = moe_gmm(x, w)
+    before = moe_gmm.tc_launches
+    part = moe_gmm(x[:, :C].contiguous(), w)
+    assert moe_gmm.tc_launches == before + 1
+    assert torch.equal(part, full[:, :C])
+
+
+@pytest.mark.parametrize("T,group", [(16, 8), (100, 40), (400, 300),
+                                     (400, 1)])
+def test_moe_gmm_ragged_batch_invariant(cuda, T, group):
+    """bf16 on the tensor cores: token 0's output row is bitwise the same
+    when it is dispatched alone and when T tokens are, `group` of them
+    (token 0 first) on its expert: whatever row tile, rows per leader
+    block and neighbours the launch gives it."""
+    from repro_torch.kernels.moe_dispatch import (pick_row_block,
+                                                  ragged_dispatch)
+    from repro_torch.kernels.moe_gmm import moe_gmm_ragged
+    g = torch.Generator(device=cuda).manual_seed(11)
+    E, D, F = 8, 2048, 768
+    x = torch.randn(T, D, generator=g, device=cuda).bfloat16()
+    w = (torch.randn(E, D, F, generator=g, device=cuda) / D ** 0.5).bfloat16()
+
+    def row0(n_tokens, n_same):
+        ids = torch.arange(n_tokens, device=cuda) % E
+        ids[ids == 3] = 4
+        ids[:n_same] = 3
+        d = ragged_dispatch(x[:n_tokens], ids[:, None], E,
+                            row_block=pick_row_block(n_tokens, E))
+        before = moe_gmm_ragged.tc_launches
+        out = moe_gmm_ragged(d.xs, w, d.tile_expert, d.group_sizes,
+                             d.padded_offsets, n_block=d.row_block)
+        assert moe_gmm_ragged.tc_launches == before + 1
+        return out[d.dest[0].long()]
+
+    assert torch.equal(row0(T, group), row0(1, 1))
 
 
 @pytest.mark.parametrize("T,K,E,S", [(1, 1, 8, 2), (2048, 1, 128, 2),
