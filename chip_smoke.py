@@ -6,8 +6,14 @@
 2. holds each kernel against its plain PyTorch version on the card, at the
    shapes the serving path gives it, and times both (CUDA events, L2
    flushed before every launch), and the one PyTorch call that computes the
-   same function where there is one; for the two expert GEMMs it prints
-   the route each shape took (tensor cores or CUDA cores);
+   same function where there is one; for the two expert GEMMs and the two
+   decode kernels it prints the route each shape took (tensor cores or
+   CUDA cores). The decode kernels also get their device time per call
+   from ``torch.profiler`` (partial and combine passes, without the
+   wrapper's host work; for ``flash_decode`` also SDPA's) and a row at a
+   32768-token context, and each request's output row is held to its own
+   norm as well (``decode_route.row_rel_err``), since at long contexts the
+   outputs are far smaller than the absolute bf16 bar;
 3. checks the port end to end on a small input: a float32 twin of the
    model served on the card through the kernels and on the CPU through the
    plain versions must give the same token streams and statistics, on one
@@ -38,8 +44,8 @@
 
 The kernel launch counters are set to 0 just before each serve of steps 4,
 6 and 7 and read just after; each serve fails if a kernel of its path was
-not launched, or if a bf16 launch of an expert GEMM at full width took the
-CUDA cores instead of the tensor cores.
+not launched, or if a bf16 launch of an expert GEMM or of a decode kernel
+at full width took the CUDA cores instead of the tensor cores.
 
 Any failure raises, and the script exits non-zero. It never runs on the
 CPU: without a CUDA device it exits with an error before doing anything.
@@ -49,6 +55,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -100,6 +107,53 @@ class Timer:
             total += start.elapsed_time(end)
         return total / self.iters
 
+    def device(self, fn, match=None, n_kernels=None):
+        """Mean device time per call of ``fn`` from torch.profiler, L2
+        flushed before each call: the kernels alone, without the host work
+        around them. ``match``: the ``n_kernels`` kernels whose names hold
+        one of these, each launched once a call; None: every device event
+        of ``fn`` (a library call, whatever kernels it picks), the flush
+        left out: here the flush is a bitwise_not, a kernel no timed
+        function launches. Returns (ms, {kernel: ms})."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        for _ in range(self.warmup):
+            fn()
+        torch.cuda.synchronize()
+        for _ in range(3):         # a profile now and then misses kernels
+            parts, counts, flushes = {}, {}, 0
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(self.iters):
+                    self.flush_buf.bitwise_not_()
+                    fn()
+                torch.cuda.synchronize()
+            for e in prof.key_averages():
+                if e.device_type != DeviceType.CUDA:
+                    continue
+                if "bitwise_not" in e.key:
+                    flushes += e.count
+                    continue
+                hit = [m for m in match if m in e.key] if match else [""]
+                if not hit:
+                    continue
+                name = re.search(r"\w*" + hit[0] + r"\w*", e.key).group(0) \
+                    if match else e.key[:60]
+                parts[name] = parts.get(name, 0.0) \
+                    + e.self_device_time_total / 1e3 / self.iters
+                counts[name] = counts.get(name, 0) + e.count
+            seen = flushes == self.iters and (
+                len(parts) == n_kernels and all(
+                    c == self.iters for c in counts.values())
+                if match else bool(parts))
+            if seen:
+                break
+        else:
+            raise AssertionError(f"profiler did not see the kernels of "
+                                 f"{match or 'the call'} ({n_kernels}) and "
+                                 f"the flush {self.iters} times each in three "
+                                 f"tries: {counts}, {flushes} flushes")
+        return sum(parts.values()), parts
+
 
 def bound_ms(nbytes: float, ops: float, kind: str):
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
@@ -112,14 +166,33 @@ def max_err(a, b) -> float:
 
 
 # ------------------------------------------------------------------ kernels
-def check_paged_decode(timer, dtype, int8_pages=False):
+def route_name(tc_launched: int) -> str:
+    return "tensor cores" if tc_launched else "CUDA cores"
+
+
+DECODE_KERNELS = ("decode_partial", "decode_tc", "combine")  # both passes
+
+
+def device_times(timer, run):
+    ms, parts = timer.device(run, DECODE_KERNELS, n_kernels=2)
+    return {"device_ms": ms, "device_parts": parts}
+
+
+def check_paged_decode(timer, dtype, int8_pages=False, long_ctx=False):
+    """The serving shape (8 requests up to 1024 tokens, lane 0 empty), or a
+    32768-token context over a pool of 16385 pages (0.54 GB in bf16)."""
+    from repro_torch.kernels.decode_route import row_rel_err
     from repro_torch.kernels.kv_pack import pack_kv_plain
     from repro_torch.kernels.paged_decode import (paged_decode,
                                                   paged_decode_plain)
     g = torch.Generator(device="cuda").manual_seed(1)
-    B, Hq, Hkv, hd, ps, NB = 8, 32, 4, 128, 16, 64
-    ctx = [0, 1, 17, 256, 511, 700, 1000, 1024]      # lane 0 empty
-    P = B * NB + 1
+    B, Hq, Hkv, hd, ps = 8, 32, 4, 128, 16
+    if long_ctx:
+        NB, P = 2048, 16385
+        ctx = [32768, 30000, 26000, 20000, 16384, 9000, 4000, 1]
+    else:
+        NB, P = 64, 8 * 64 + 1
+        ctx = [0, 1, 17, 256, 511, 700, 1000, 1024]      # lane 0 empty
     q = torch.randn(B, Hq, hd, generator=g, device="cuda").to(dtype)
     kp = torch.randn(P, ps, Hkv, hd, generator=g, device="cuda").to(dtype)
     vp = torch.randn(P, ps, Hkv, hd, generator=g, device="cuda").to(dtype)
@@ -136,13 +209,17 @@ def check_paged_decode(timer, dtype, int8_pages=False):
         bt[b, :n] = perm[used:used + n].to(torch.int32)
         used += n
     ctx_t = torch.tensor(ctx, dtype=torch.int32, device="cuda")
+    tc_before = paged_decode.tc_launches
     out = paged_decode(q, kp, vp, bt, ctx_t, **scales)
+    route = route_name(paged_decode.tc_launches - tc_before)
     ref = paged_decode_plain(q, kp, vp, bt, ctx_t, *scales.values())
     torch.cuda.synchronize()
-    err = max_err(out, ref)
-    if not torch.isfinite(out).all() or out[0].abs().max() != 0:
+    err, rel = max_err(out, ref), row_rel_err(out, ref)
+    if not torch.isfinite(out).all() or \
+            (ctx[0] == 0 and out[0].abs().max() != 0):
         raise AssertionError("paged_decode: non-finite output or a ctx=0 "
                              "lane that is not exactly zero")
+    del ref
     item = q.element_size()
     live = sum(ctx)
     # K and V of the live tokens (and their scales on int8 pages)
@@ -151,15 +228,17 @@ def check_paged_decode(timer, dtype, int8_pages=False):
         + bt.numel() * 4 + B * 4
     ops = 4.0 * live * Hq * hd
     pages = "int8 pages + f32 scales" if int8_pages else "pages in q's type"
-    return {"shape": f"B={B} Hq={Hq} Hkv={Hkv} hd={hd} ps={ps} ctx={ctx}, "
+    ctx_s = f"ctx={ctx}" if not long_ctx else \
+        f"long context: ctx={ctx}, NB={NB}, pool of {P} pages"
+    run = lambda: paged_decode(q, kp, vp, bt, ctx_t, **scales)  # noqa: E731
+    return {"shape": f"B={B} Hq={Hq} Hkv={Hkv} hd={hd} ps={ps} {ctx_s}, "
                      f"{pages}",
-            "err": err,
-            "ms": timer(lambda: paged_decode(q, kp, vp, bt, ctx_t,
-                                             **scales)),
+            "err": err, "row_rel_err": rel,
+            "ms": timer(run), **device_times(timer, run),
             "plain_ms": timer(lambda: paged_decode_plain(
                 q, kp, vp, bt, ctx_t, *scales.values())),
             "bound": bound_ms(nbytes, ops, str(dtype).split(".")[1]),
-            "library_ms": None}
+            "library_ms": None, "route": route}
 
 
 def dispatch_layout(T, K, E, D, dtype, g):
@@ -169,10 +248,6 @@ def dispatch_layout(T, K, E, D, dtype, g):
     x = torch.randn(T, D, generator=g, device="cuda").to(dtype)
     nb = pick_row_block(T * K, E)
     return ragged_dispatch(x, ids, E, row_block=nb)
-
-
-def gmm_route(tc_launched: int) -> str:
-    return "tensor cores" if tc_launched else "CUDA cores"
 
 
 def check_gmm(timer, dtype, T, D, F, which):
@@ -188,7 +263,7 @@ def check_gmm(timer, dtype, T, D, F, which):
     nb = disp.row_block
     tc_before = moe_gmm_ragged.tc_launches
     out = moe_gmm_ragged(*args, n_block=nb)
-    route = gmm_route(moe_gmm_ragged.tc_launches - tc_before)
+    route = route_name(moe_gmm_ragged.tc_launches - tc_before)
     ref = moe_gmm_ragged_plain(*args, n_block=nb)
     torch.cuda.synchronize()
     err = max_err(out, ref)
@@ -214,31 +289,43 @@ def check_gmm(timer, dtype, T, D, F, which):
             "library_ms": lib, "route": route}
 
 
-def check_flash_decode(timer, dtype):
+def check_flash_decode(timer, dtype, long_ctx=False):
     """The dense ring cache of a RealModelEngine at full width: 8 slots of
     1024, rows at assorted write positions (one wrapped past the end of
-    the ring, one fully masked: exact zeros)."""
+    the ring, one fully masked: exact zeros); or 8 rings of 32768 slots,
+    most of them full."""
     import torch.nn.functional as F
+    from repro_torch.kernels.decode_route import row_rel_err
     from repro_torch.kernels.flash_decode import (flash_decode,
                                                   flash_decode_plain)
     from repro_torch.models.attention import ring_positions
     g = torch.Generator(device="cuda").manual_seed(6)
-    B, Hq, Hkv, hd, L = 8, 32, 4, 128, 1024
+    B, Hq, Hkv, hd = 8, 32, 4, 128
+    if long_ctx:
+        L = 32768
+        write = [32767, 40000, 65535, 32767, 50000, 32767, 20000, 32767]
+    else:
+        L = 1024
+        write = [99, 1500, 255, 600, 931, 1023, 0, 400]     # row 1 wrapped
     q = torch.randn(B, Hq, hd, generator=g, device="cuda").to(dtype)
     kc = torch.randn(B, L, Hkv, hd, generator=g, device="cuda").to(dtype)
     vc = torch.randn(B, L, Hkv, hd, generator=g, device="cuda").to(dtype)
-    write = torch.tensor([99, 1500, 255, 600, 931, 1023, 0, 400],
-                         device="cuda")                # row 1 wrapped
+    write = torch.tensor(write, device="cuda")
     k_pos = ring_positions(write, L)
     q_pos = write.to(torch.int32)
-    k_pos[6] = -1                                      # row 6: no valid slot
+    if not long_ctx:
+        k_pos[6] = -1                                  # row 6: no valid slot
+    tc_before = flash_decode.tc_launches
     out = flash_decode(q, kc, vc, k_pos, q_pos)
+    route = route_name(flash_decode.tc_launches - tc_before)
     ref = flash_decode_plain(q, kc, vc, k_pos, q_pos)
     torch.cuda.synchronize()
-    err = max_err(out, ref)
-    if not torch.isfinite(out).all() or out[6].abs().max() != 0:
+    err, rel = max_err(out, ref), row_rel_err(out, ref)
+    if not torch.isfinite(out).all() or \
+            (not long_ctx and out[6].abs().max() != 0):
         raise AssertionError("flash_decode: non-finite output or a row with "
                              "no valid slot that is not exactly zero")
+    del ref
     valid = (k_pos >= 0) & (k_pos <= q_pos[:, None])
     n_valid = int(valid.sum())
     item = q.element_size()
@@ -250,24 +337,32 @@ def check_flash_decode(timer, dtype):
     q4 = q[:, :, None].contiguous()                    # (B, Hq, 1, hd)
     k4, v4 = (t.transpose(1, 2).contiguous() for t in (kc, vc))
     mask = valid[:, None, None, :]
-    lib = None
+    lib = lib_dev = None
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q4, k4, v4, attn_mask=mask, enable_gqa=True)
     try:
-        F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
-                                       enable_gqa=True)
-        lib = timer(lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, attn_mask=mask, enable_gqa=True))
+        sdpa()
     except (TypeError, RuntimeError) as exc:
         log(f"library: scaled_dot_product_attention with enable_gqa not "
             f"timed ({exc})")
-    return {"shape": f"B={B} Hq={Hq} Hkv={Hkv} hd={hd} L={L} ring, write "
-                     f"positions {write.tolist()}, row 6 masked, "
+    else:
+        # event time as for every library call, and device time, to set
+        # against the kernel's own device time without either's host work
+        lib = timer(sdpa)
+        lib_dev = dict(zip(("library_device_ms", "library_device_parts"),
+                           timer.device(sdpa)))
+    what = (f"long context: L={L} ring, write positions {write.tolist()}"
+            if long_ctx else f"L={L} ring, write positions "
+            f"{write.tolist()}, row 6 masked")
+    run = lambda: flash_decode(q, kc, vc, k_pos, q_pos)  # noqa: E731
+    return {"shape": f"B={B} Hq={Hq} Hkv={Hkv} hd={hd} {what}, "
                      f"{n_valid} valid slots",
-            "err": err,
-            "ms": timer(lambda: flash_decode(q, kc, vc, k_pos, q_pos)),
+            "err": err, "row_rel_err": rel,
+            "ms": timer(run), **device_times(timer, run),
             "plain_ms": timer(lambda: flash_decode_plain(q, kc, vc, k_pos,
                                                          q_pos)),
             "bound": bound_ms(nbytes, ops, str(dtype).split(".")[1]),
-            "library_ms": lib}
+            "library_ms": lib, **(lib_dev or {}), "route": route}
 
 
 def check_padded_gmm(timer, dtype, E, C, D, F, which):
@@ -278,7 +373,7 @@ def check_padded_gmm(timer, dtype, E, C, D, F, which):
          / np.sqrt(D)).to(dtype)
     tc_before = moe_gmm.tc_launches
     out = moe_gmm(x, w)
-    route = gmm_route(moe_gmm.tc_launches - tc_before)
+    route = route_name(moe_gmm.tc_launches - tc_before)
     ref = moe_gmm_plain(x, w)
     torch.cuda.synchronize()
     err = max_err(out, ref)
@@ -386,6 +481,7 @@ def check_unpack(timer, dtype, shape):
 
 def kernel_phase():
     """Each kernel against its plain version at the serving shapes."""
+    from repro_torch.kernels.decode_route import ROW_TOL
     timer = Timer()
     results = {"paged_decode": [], "moe_gmm_ragged": [],
                "source_expert_count": [], "pack_kv": [], "unpack_kv": [],
@@ -394,16 +490,36 @@ def kernel_phase():
     def record(kname, dt, r):
         tol = TOL.get(dt.split("/")[0], 0.0)
         ok = r["err"] <= tol
+        rel = ""
+        if "row_rel_err" in r:      # the decode kernels: each row's own norm
+            rel_tol = ROW_TOL[getattr(torch, dt.split("/")[0])]
+            ok = ok and r["row_rel_err"] <= rel_tol
+            rel = (f", row_rel_err {r['row_rel_err']:.3g} (tolerance "
+                   f"{rel_tol:g})")
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
+        if "library_device_ms" in r:
+            lib += f" (device {r['library_device_ms']:.4f} ms)"
         route = f"route {r['route']}, " if "route" in r else ""
+        dev = ""
+        if "device_ms" in r:
+            parts = " + ".join(f"{k} {v:.4f}"
+                               for k, v in r["device_parts"].items())
+            dev = f" (device {r['device_ms']:.4f} ms = {parts})"
         log(f"kernel {kname} [{dt}] {r['shape']}: max_abs_err "
-            f"{r['err']:.3g} (tolerance {tol:g}) {'ok' if ok else 'FAIL'}; "
-            f"{route}kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-            f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), library {lib}")
+            f"{r['err']:.3g} (tolerance {tol:g}){rel} "
+            f"{'ok' if ok else 'FAIL'}; "
+            f"{route}kernel {r['ms']:.4f} ms{dev}, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
+            f"({r['bound'][1]}), library {lib}")
         if not ok:
             raise AssertionError(f"{kname} [{dt}] disagrees with its plain "
-                                 f"version: {r['err']} > {tol}")
+                                 f"version: max_abs_err {r['err']} (tolerance "
+                                 f"{tol}){rel}")
+        if kname.endswith("_decode") and dt.startswith("bfloat16") \
+                and r["route"] == "CUDA cores":
+            raise AssertionError(f"{kname} [{dt}] {r['shape']}: took the "
+                                 "CUDA cores at a full-width bf16 shape")
         results[kname].append((dt, r))
 
     for dtype in (torch.bfloat16, torch.float32):
@@ -421,6 +537,15 @@ def kernel_phase():
                        check_gmm(timer, dtype, T, D, F,
                                  f"{which} {proj}"))
         record("flash_decode", dt, check_flash_decode(timer, dtype))
+        if dtype == torch.bfloat16:       # the long-context rows, then free
+            record("paged_decode", dt,
+                   check_paged_decode(timer, dtype, long_ctx=True))
+            record("paged_decode", dt + "/int8",
+                   check_paged_decode(timer, dtype, int8_pages=True,
+                                      long_ctx=True))
+            record("flash_decode", dt,
+                   check_flash_decode(timer, dtype, long_ctx=True))
+            torch.cuda.empty_cache()
         # capacity C = max(ceil(S * K * 1.25 / E), 4): 4 at a decode step of
         # 8 slots (one regrouped dispatch), 71 at a 900-token prefill
         for E, C, D, F, which in (
@@ -439,8 +564,8 @@ def kernel_phase():
 
 # ------------------------------------------------------------------ serving
 def reset_counts(counters):
-    """Every launch counter of ``counters`` (and the GMMs' tensor-core
-    counters) to 0, just before a serve."""
+    """Every launch counter of ``counters`` (and the tensor-core counters
+    of the GMMs and the decode kernels) to 0, just before a serve."""
     for fn in counters.values():
         fn.launches = 0
         if hasattr(fn, "tc_launches"):
@@ -448,23 +573,26 @@ def reset_counts(counters):
 
 
 def read_counts(counters):
-    """(launches, tensor-core launches of the expert GEMMs), just after a
-    serve."""
+    """(launches, tensor-core launches of the kernels that have two
+    routes), just after a serve."""
     return ({name: fn.launches for name, fn in counters.items()},
             {name: fn.tc_launches for name, fn in counters.items()
              if hasattr(fn, "tc_launches")})
 
 
-def check_gmm_routes(phase, launches, tc, main):
-    """At full width in bf16 every expert-GEMM launch takes the tensor
-    cores: the path's GMM ``main`` launched there, none on the CUDA cores."""
+def check_routes(phase, launches, tc, mains):
+    """At full width in bf16 every launch of an expert GEMM or a decode
+    kernel takes the tensor cores: each kernel of ``mains`` (the path's GEMM
+    and decode kernel) launched there, none on the CUDA cores."""
     for name, n_tc in tc.items():
         if launches[name] - n_tc:
             raise AssertionError(f"{phase}: {name} took the CUDA cores "
                                  f"{launches[name] - n_tc} times at full "
                                  f"width in bf16")
-    if tc[main] <= 0:
-        raise AssertionError(f"{phase}: {main} never took the tensor cores")
+    for main in mains:
+        if tc[main] <= 0:
+            raise AssertionError(f"{phase}: {main} never took the tensor "
+                                 "cores")
 
 
 def make_requests(cfg, n, lo, hi, max_new, seed, gap=0.001):
@@ -693,17 +821,20 @@ def profiled(label, run):
     log(f"profile {label}: {what} in {wall * 1e3:.1f} ms wall (profiled), "
         f"device busy {busy_ms:.1f} ms = "
         f"{100 * busy_ms / (wall * 1e3):.1f}% of the wall time")
-    gmm = [r for r in rows if "gmm_" in r[2]]     # both GEMMs, both routes
+    for what, match in (("expert GEMM", ("gmm_",)),   # both, both routes
+                        ("decode", DECODE_KERNELS)):   # both passes
+        mine = [r for r in rows if any(m in r[2] for m in match)]
 
-    def short(key):        # "void (anonymous namespace)::gmm_x<1, 1>(...)"
-        return key[key.index("gmm_"):].split("(")[0]
+        def short(key):    # "void (anonymous namespace)::gmm_x<1, 1>(...)"
+            i = key.find("::")
+            return key[i + 2 if i >= 0 else 0:].split("(")[0]
 
-    gmm_ms = sum(r[0] for r in gmm) / 1e3
-    parts = ", ".join(f"{short(k)} {us / 1e3:.1f} ms / {n}"
-                      for us, n, k in sorted(gmm, reverse=True))
-    log(f"profile {label}: expert GEMM kernels {gmm_ms:.1f} ms in "
-        f"{sum(r[1] for r in gmm)} launches = "
-        f"{100 * gmm_ms / busy_ms:.1f}% of the device time ({parts})")
+        ms = sum(r[0] for r in mine) / 1e3
+        parts = ", ".join(f"{short(k)} {us / 1e3:.1f} ms / {n}"
+                          for us, n, k in sorted(mine, reverse=True))
+        log(f"profile {label}: {what} kernels {ms:.1f} ms in "
+            f"{sum(r[1] for r in mine)} launches = "
+            f"{100 * ms / busy_ms:.1f}% of the device time ({parts})")
     for us, n, key in sorted(rows, reverse=True)[:12]:
         log(f"profile {label}:   {us / 1e3:9.2f} ms  {n:6d} calls  "
             f"{key[:90]}")
@@ -750,7 +881,7 @@ def serve_phase(args, counters):
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched while "
                                  "serving")
-    check_gmm_routes("serve", launches, tc, "moe_gmm_ragged")
+    check_routes("serve", launches, tc, ("moe_gmm_ragged", "paged_decode"))
     K = cfg.moe.top_k
     for e, (B, A) in zip(engines, stats):
         routed = e.total_prefill_tokens + e.total_decode_tokens
@@ -847,7 +978,8 @@ def cluster_phase(args, cfg, params, counters):
         if n <= 1:
             raise AssertionError(f"cluster: kernel {name} launched {n} "
                                  "times")
-    check_gmm_routes("cluster", launches, tc, "moe_gmm_ragged")
+    check_routes("cluster", launches, tc,
+                 ("moe_gmm_ragged", "paged_decode"))
     prompt = sum(r.prompt_len for r in reqs)
     gen_tok = sum(len(r.full_output_tokens) for r in reqs)
     fp = tfm.paged_cache_page_nbytes(
@@ -932,7 +1064,7 @@ def dense_cluster_phase(args, cfg, params, counters):
         if launches[name] <= 1:
             raise AssertionError(f"dense cluster: kernel {name} launched "
                                  f"{launches[name]} times")
-    check_gmm_routes("dense cluster", launches, tc, "moe_gmm")
+    check_routes("dense cluster", launches, tc, ("moe_gmm", "flash_decode"))
     steps = sum(e.step_count for e in engines)
     prompt = sum(r.prompt_len for r in reqs)
     gen_tok = sum(len(r.full_output_tokens) for r in reqs)
@@ -1027,7 +1159,8 @@ def main() -> int:
     # kernels of the dense plane, the paged cluster serve for the others
     main_launches = dict(launches, flash_decode=dense_launches["flash_decode"],
                          moe_gmm=dense_launches["moe_gmm"])
-    main_tc = dict(cluster_tc, moe_gmm=dense_tc["moe_gmm"])
+    main_tc = dict(cluster_tc, moe_gmm=dense_tc["moe_gmm"],
+                   flash_decode=dense_tc["flash_decode"])
 
     meta = {
         "paged_decode": ("src/repro_torch/csrc/paged_decode.cu",
@@ -1048,9 +1181,10 @@ def main() -> int:
     kernels = []
     for name, rows in results.items():
         main_row = rows[0][1]          # bf16 at the first serving shape
-        gmm = {}
-        if name in main_tc:            # the expert GEMMs' routes
-            gmm = {"tc_launches": main_tc[name],
+        route_key = "gmm_route" if "gmm" in name else "decode_route"
+        routes = {}
+        if name in main_tc:            # the GEMMs' and decode kernels' routes
+            routes = {"tc_launches": main_tc[name],
                    "tc_launches_by_path": {
                        "serve": serve_tc.get(name, 0),
                        "cluster_serve": cluster_tc.get(name, 0),
@@ -1067,13 +1201,19 @@ def main() -> int:
             "bound_ms": main_row["bound"][0],
             "bound_by": main_row["bound"][1],
             "library_ms": main_row["library_ms"],
-            "shape": main_row["shape"], **gmm,
+            **({"device_ms": main_row["device_ms"]}
+               if "device_ms" in main_row else {}),
+            "shape": main_row["shape"], **routes,
             "shapes": [{"dtype": dt, "shape": r["shape"], "err": r["err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
                         "library_ms": r["library_ms"],
-                        **({"gmm_route": r["route"]} if "route" in r
-                           else {})} for dt, r in rows],
+                        **{k: r[k] for k in ("row_rel_err", "device_ms",
+                                             "device_parts",
+                                             "library_device_ms")
+                           if k in r},
+                        **({route_key: r["route"]} if "route" in r else {})}
+                       for dt, r in rows],
         })
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)

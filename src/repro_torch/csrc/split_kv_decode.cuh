@@ -1,16 +1,22 @@
 // Split-KV flash decoding, the parts shared by paged_decode.cu and
-// flash_decode.cu: one block per (request, KV head, slice of the context)
-// serves the G = Hq / Hkv query heads of its KV head. The kernel stages TILE
-// K/V rows of its slice in shared memory as f32 (how it finds them is its
-// own: through a block table, or in a dense cache), then attend_tile runs
-// the online-softmax update; write_partials stores the slice's (max, sum,
-// accumulator) per query head, and combine merges the slices.
+// flash_decode.cu (the ports of src/repro/kernels/paged_decode.py and
+// flash_decode.py): one block per (request, KV head, slice of the context)
+// serves the G = Hq / Hkv query heads of its KV head and writes the slice's
+// (max, sum, accumulator) per query head; combine merges the slices.
+//
+// This header holds the CUDA-core route (f32 inputs, and bf16 shapes the
+// tensor-core route of split_kv_tc.cuh cannot take), the partials' layout
+// in the call's one f32 scratch buffer, and the combine pass both routes
+// share. The CUDA-core kernel stages TILE K/V rows of its slice in shared
+// memory as f32 (how it finds them is its own: through a block table, or in
+// a dense cache), then attend_tile runs the online-softmax update.
 //
 // State in shared memory, f32: qs [G][hd], ks [TILE][hd + 1] (padded rows:
 // conflict-free score reads), vs [TILE][hd], sc [G][TILE], acc [G][hd],
-// ms, ls, cs [G]. A slice with no token writes (NEG_INF, 0, 0), which the
-// combine weighs by exp(-huge) = 0; a row with no token at all divides 0 by
-// max(0, 1e-30) and gives exact zeros.
+// ms, ls, cs [G]. A slice with no token writes (NEG_INF, 0, 0), and the
+// combine gives every slice with l = 0 the weight 0 without reading its
+// accumulator; a row with no token at all divides 0 by max(0, 1e-30) and
+// gives exact zeros.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -160,37 +166,125 @@ __device__ __forceinline__ void write_partials(const State& st, int b, int h,
   }
 }
 
+// The partials in the call's scratch buffer, f32: acc (B, Hq, n_split, hd)
+// first (16-byte aligned for the combine's vector loads), then m and l
+// (B, Hq, n_split); scratch holds B * Hq * n_split * (hd + 2) floats.
+struct Partials {
+  float *acc, *m, *l;
+  Partials(void* scratch, int B, int Hq, int n_split, int hd) {
+    const size_t rows = (size_t)B * Hq * n_split;
+    acc = static_cast<float*>(scratch);
+    m = acc + rows * hd;
+    l = m + rows;
+  }
+};
+
+constexpr int COMBINE_WARPS = 4;
+constexpr int COMBINE_THREADS = 32 * COMBINE_WARPS;
+constexpr int MAX_SPLITS = 8192;  // the combine's weights in shared memory
+
+// op over the block's values: a butterfly over the lanes, then the warps'
+// results in warp order. red holds COMBINE_WARPS floats.
+template <typename Op>
+__device__ __forceinline__ float block_reduce(float v, float* red, Op op) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) v = op(v, __shfl_xor_sync(~0u, v, o));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  v = red[0];
+#pragma unroll
+  for (int w = 1; w < COMBINE_WARPS; ++w) v = op(v, red[w]);
+  __syncthreads();
+  return v;
+}
+
 // One block per (request, query head): rescales the slices' partials to
-// the global max and divides by the global sum.
-template <typename T>
-__global__ void combine(const float* __restrict__ m_part,
-                        const float* __restrict__ l_part,
-                        const float* __restrict__ acc_part,
-                        T* __restrict__ out, int Hq, int hd, int n_split) {
-  const int b = blockIdx.x, hq = blockIdx.y;
+// the global max m and divides by the global sum. Each slice's weight
+// exp(m_s - m) is computed once into shared memory, 0 for a slice with no
+// token (l_s = 0), whose accumulator is then never read: the tensor-core
+// route does not write it. Warp w sums the accumulators of the slices w,
+// w + COMBINE_WARPS, ..., four columns a lane (16-byte loads), and the
+// warps' sums are added in warp order, so the result does not depend on
+// timing. EXP2: the maxima are in log2 units (the tensor-core route), so
+// the weight is exp2(m_s - m). hd must be a multiple of 4.
+template <typename T, bool EXP2>
+__global__ void __launch_bounds__(COMBINE_THREADS)
+combine(Partials part, T* __restrict__ out, int Hq, int hd, int n_split) {
+  extern __shared__ float sm[];   // wts [n_split, rounded up to 4], sums
+  float* wts = sm;
+  float* sums = sm + ((n_split + 3) & ~3);          // [COMBINE_WARPS][hd]
+  __shared__ float red[COMBINE_WARPS];
+  const int b = blockIdx.x, hq = blockIdx.y, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
   const size_t row0 = ((size_t)b * Hq + hq) * n_split;
   float m = NEG_INF;
-  for (int s = 0; s < n_split; ++s) m = fmaxf(m, m_part[row0 + s]);
+  for (int s = tid; s < n_split; s += COMBINE_THREADS)
+    m = fmaxf(m, part.m[row0 + s]);
+  m = block_reduce(m, red, [](float x, float y) { return fmaxf(x, y); });
   float l = 0.f;
-  for (int s = 0; s < n_split; ++s)
-    l += l_part[row0 + s] * expf(m_part[row0 + s] - m);
-  for (int d = threadIdx.x; d < hd; d += blockDim.x) {
-    float a = 0.f;
-    for (int s = 0; s < n_split; ++s)
-      a += acc_part[(row0 + s) * hd + d] * expf(m_part[row0 + s] - m);
+  for (int s = tid; s < n_split; s += COMBINE_THREADS) {
+    const float ls = part.l[row0 + s];
+    const float x = part.m[row0 + s] - m;
+    const float w = ls > 0.f ? (EXP2 ? exp2f(x) : expf(x)) : 0.f;
+    wts[s] = w;
+    l += ls * w;
+  }
+  l = block_reduce(l, red, [](float x, float y) { return x + y; });
+  for (int c = lane; c < hd / 4; c += 32) {
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s = warp; s < n_split; s += COMBINE_WARPS) {
+      const float w = wts[s];
+      if (w == 0.f) continue;
+      const float4 v = *reinterpret_cast<const float4*>(
+          part.acc + (row0 + s) * hd + 4 * c);
+      a.x += v.x * w;
+      a.y += v.y * w;
+      a.z += v.z * w;
+      a.w += v.w * w;
+    }
+    *reinterpret_cast<float4*>(sums + warp * hd + 4 * c) = a;
+  }
+  __syncthreads();
+  for (int d = tid; d < hd; d += COMBINE_THREADS) {
+    float a = sums[d];
+#pragma unroll
+    for (int w = 1; w < COMBINE_WARPS; ++w) a += sums[w * hd + d];
     out[((size_t)b * Hq + hq) * hd + d] = from_f<T>(a / fmaxf(l, 1e-30f));
   }
 }
 
-template <typename T>
-int launch_combine(const void* m_part, const void* l_part,
-                   const void* acc_part, void* out, int B, int Hq, int hd,
+template <typename T, bool EXP2>
+int launch_combine(const Partials& p, void* out, int B, int Hq, int hd,
                    int n_split, cudaStream_t stream) {
-  combine<T><<<dim3(B, Hq), hd < 1024 ? hd : 1024, 0, stream>>>(
-      static_cast<const float*>(m_part), static_cast<const float*>(l_part),
-      static_cast<const float*>(acc_part), static_cast<T*>(out), Hq, hd,
-      n_split);
+  if (n_split > MAX_SPLITS || hd % 4 || hd > 1024)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      sizeof(float) * (((n_split + 3) & ~3) + COMBINE_WARPS * hd);
+  combine<T, EXP2><<<dim3(B, Hq), COMBINE_THREADS, smem, stream>>>(
+      p, static_cast<T*>(out), Hq, hd, n_split);
   return (int)cudaGetLastError();
+}
+
+// Allows KERNEL at least smem bytes of dynamic shared memory on `device`;
+// cudaFuncSetAttribute only when a launch needs more than any before.
+template <auto KERNEL>
+cudaError_t allow_smem(size_t smem, int device) {
+  static size_t allowed[64] = {};   // per device
+  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+  if (smem <= 48 * 1024 || smem <= allowed[device]) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) allowed[device] = smem;
+  return err;
+}
+
+// Makes `device` current, reading the current one first: no cudaSetDevice
+// when it already is.
+inline cudaError_t use_device(int device) {
+  int cur = -1;
+  cudaError_t err = cudaGetDevice(&cur);
+  if (err != cudaSuccess || cur == device) return err;
+  return cudaSetDevice(device);
 }
 
 }  // namespace split_kv

@@ -7,18 +7,19 @@ l of row b is attended iff ``0 <= k_pos[b, l] <= q_pos[b]``. A row with no
 valid slot gives exact zeros, as the reference's Pallas kernel does.
 
 ``flash_decode`` launches the CUDA kernel ``csrc/flash_decode.cu`` on a CUDA
-tensor and runs ``flash_decode_plain`` on a CPU tensor.
+tensor and runs ``flash_decode_plain`` on a CPU tensor. On the card a launch
+takes the route ``decode_route.tc_eligible`` picks (bf16 on the tensor
+cores, else the CUDA cores), as ``paged_decode`` does; ``launches`` counts
+every launch, ``tc_launches`` those on the tensor cores.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import decode_route, ops
 
 NEG_INF = -1e30
-# cache slots per block of the kernel's partial pass
-SPLIT_TOKENS = 128
 
 
 def flash_decode_plain(q, k_cache, v_cache, k_pos, q_pos):
@@ -74,20 +75,20 @@ def flash_decode(q, k_cache, v_cache, k_pos, q_pos):
         raise ValueError("flash_decode: the kernel reads 16-byte vectors: "
                          "hd * itemsize must be a multiple of 16 and the "
                          "caches 16-byte aligned")
-    n_split = max(1, -(-L // SPLIT_TOKENS))
+    split_tokens, n_split = decode_route.split_plan(L)
+    code = decode_route.route_code(q.dtype, hd, Hq // Hkv, q.data_ptr(),
+                                   k_cache.data_ptr(), v_cache.data_ptr())
     out = torch.empty_like(q)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    m_part = torch.empty((B, Hq, n_split), **f32)
-    l_part = torch.empty((B, Hq, n_split), **f32)
-    acc_part = torch.empty((B, Hq, n_split, hd), **f32)
+    scratch = decode_route.scratch(B, Hq, n_split, hd, q.device)
     ops.launch("flash_decode", q.data_ptr(), k_cache.data_ptr(),
                v_cache.data_ptr(), k_pos.data_ptr(), q_pos.data_ptr(),
-               m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
-               out.data_ptr(), B, Hq, Hkv, hd, L, n_split, SPLIT_TOKENS,
-               float(1.0 / np.sqrt(hd)), ops.DTYPE_CODE[q.dtype],
+               scratch.data_ptr(), out.data_ptr(), B, Hq, Hkv, hd, L,
+               n_split, split_tokens, float(1.0 / np.sqrt(hd)), code,
                device=q.device)
     flash_decode.launches += 1
+    flash_decode.tc_launches += code == decode_route.TC_CODE
     return out
 
 
 flash_decode.launches = 0
+flash_decode.tc_launches = 0

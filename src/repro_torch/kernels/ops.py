@@ -36,17 +36,17 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 # entry point -> (library it lives in, argtypes)
 _ENTRIES = {
     # q, k_pages, v_pages, k_scales, v_scales (null for fp pages),
-    # block_tables, ctx_lens, m_part, l_part, acc_part, out, B, Hq, Hkv, hd,
-    # ps, NB, n_split, split_tokens, scale, dtype, device, stream
-    "paged_decode": ("paged_decode", [_P] * 11 + [_I] * 8 + [_F, _I, _I, _P]),
+    # block_tables, ctx_lens, scratch, out, B, Hq, Hkv, hd, ps, NB, n_split,
+    # split_tokens, scale, dtype, device, stream
+    "paged_decode": ("paged_decode", [_P] * 9 + [_I] * 8 + [_F, _I, _I, _P]),
     # x, w, tile_expert, group_sizes, padded_offsets, out, Np, D, F, E, nb,
     # dtype, device, stream
     "moe_gmm": ("moe_gmm", [_P] * 6 + [_I] * 7 + [_P]),
     # x, w, out, E, C, D, F, dtype, device, stream
     "moe_gmm_padded": ("moe_gmm", [_P] * 3 + [_I] * 6 + [_P]),
-    # q, k_cache, v_cache, k_pos, q_pos, m_part, l_part, acc_part, out, B,
-    # Hq, Hkv, hd, L, n_split, split_tokens, scale, dtype, device, stream
-    "flash_decode": ("flash_decode", [_P] * 9 + [_I] * 7 + [_F, _I, _I, _P]),
+    # q, k_cache, v_cache, k_pos, q_pos, scratch, out, B, Hq, Hkv, hd, L,
+    # n_split, split_tokens, scale, dtype, device, stream
+    "flash_decode": ("flash_decode", [_P] * 7 + [_I] * 7 + [_F, _I, _I, _P]),
     # expert_idx, source_ids, b_out, a_out, T, K, E, S, device, stream
     "source_expert_count": ("source_expert_count",
                             [_P] * 4 + [_I] * 5 + [_P]),

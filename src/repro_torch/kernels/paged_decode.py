@@ -12,18 +12,20 @@ Int8 pages (``kernels/kv_pack.py``) come with ``k_scales``/``v_scales``
 as ``float(v) * scale`` in f32.
 
 ``paged_decode`` launches the CUDA kernel ``csrc/paged_decode.cu`` on a CUDA
-tensor and runs ``paged_decode_plain`` on a CPU tensor.
+tensor and runs ``paged_decode_plain`` on a CPU tensor. On the card a launch
+takes one of two routes, chosen by ``decode_route.tc_eligible`` from the
+dtype, the widths and the pointers alone: bf16 on the tensor cores, or the
+CUDA cores for f32 and for bf16 shapes the tensor cores cannot take.
+``launches`` counts every launch, ``tc_launches`` those on the tensor cores.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import decode_route, ops
 
 NEG_INF = -1e30
-# context tokens per block of the kernel's partial pass (a multiple of 32)
-SPLIT_TOKENS = 128
 
 
 def paged_decode_plain(q, k_pages, v_pages, block_tables, ctx_lens,
@@ -103,22 +105,22 @@ def paged_decode(q, k_pages, v_pages, block_tables, ctx_lens, *,
                          "hd * page itemsize must be a multiple of 16 and "
                          "the pages 16-byte aligned")
     NB = block_tables.shape[1]
-    n_split = max(1, -(-NB * ps // SPLIT_TOKENS))
+    split_tokens, n_split = decode_route.split_plan(NB * ps)
+    code = decode_route.route_code(q.dtype, hd, Hq // Hkv, q.data_ptr(),
+                                   k_pages.data_ptr(), v_pages.data_ptr())
     out = torch.empty_like(q)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    m_part = torch.empty((B, Hq, n_split), **f32)
-    l_part = torch.empty((B, Hq, n_split), **f32)
-    acc_part = torch.empty((B, Hq, n_split, hd), **f32)
+    scratch = decode_route.scratch(B, Hq, n_split, hd, q.device)
     ops.launch("paged_decode", q.data_ptr(), k_pages.data_ptr(),
                v_pages.data_ptr(), k_scales.data_ptr() if quant else None,
                v_scales.data_ptr() if quant else None,
-               block_tables.data_ptr(),
-               ctx_lens.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
-               acc_part.data_ptr(), out.data_ptr(), B, Hq, Hkv, hd, ps, NB,
-               n_split, SPLIT_TOKENS, float(1.0 / np.sqrt(hd)),
-               ops.DTYPE_CODE[q.dtype], device=q.device)
+               block_tables.data_ptr(), ctx_lens.data_ptr(),
+               scratch.data_ptr(), out.data_ptr(), B, Hq, Hkv, hd, ps, NB,
+               n_split, split_tokens, float(1.0 / np.sqrt(hd)), code,
+               device=q.device)
     paged_decode.launches += 1
+    paged_decode.tc_launches += code == decode_route.TC_CODE
     return out
 
 
 paged_decode.launches = 0
+paged_decode.tc_launches = 0

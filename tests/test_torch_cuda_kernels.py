@@ -5,12 +5,15 @@ any other host every test here skips.
     python -m pytest -q -m gpu tests/test_torch_cuda_kernels.py
 
 Tolerances: f32 within 1e-4, bf16 within 3e-2 (sums taken in another
-order), integer outputs exact; the int8 pack and unpack bit-exact (same
-IEEE division, same round-half-to-even, one rounding each). The expert
-GEMMs also check which route each launch took (the tensor cores for bf16
-with widths that are multiples of 8 and aligned pointers, else the CUDA
-cores) and, on the tensor cores, that a row's result is bitwise the same
-whatever else its expert holds."""
+order; on the tensor cores the decode kernels also round P to bf16), and
+at a 32768-token context each decode output row within 1e-2 (bf16) or
+1e-4 (f32) of its own norm; integer outputs exact; the int8 pack and
+unpack bit-exact (same IEEE division, same round-half-to-even, one
+rounding each). The expert GEMMs and the decode kernels also check which
+route each launch took (the tensor cores for bf16 at the widths
+``tc_eligible`` accepts with aligned pointers, else the CUDA cores) and,
+on the tensor cores, that a row's result is bitwise the same whatever else
+shares the launch."""
 import numpy as np
 import pytest
 import torch
@@ -42,7 +45,13 @@ def _block_tables(cuda, B, P, ps, NB, seed):
 
 
 PAGED_SHAPES = [(2, 4, 4, 32, 16, 4), (3, 8, 2, 16, 8, 5), (4, 4, 1, 64, 32, 3),
-                (8, 32, 4, 128, 16, 64), (2, 16, 2, 256, 8, 6)]
+                (8, 32, 4, 128, 16, 64), (2, 16, 2, 256, 8, 6),
+                (2, 32, 1, 64, 16, 4)]         # G = 32: the CUDA cores
+
+
+def _decode_tc(dtype, hd, G):
+    """The decode route a launch on fresh (aligned) tensors must take."""
+    return dtype == torch.bfloat16 and hd % 16 == 0 and hd <= 128 and G <= 16
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -56,9 +65,10 @@ def test_paged_decode_kernel(cuda, dtype, B, Hq, Hkv, hd, ps, NB):
     kp = torch.randn(P, ps, Hkv, hd, generator=g, device=cuda).to(dtype)
     vp = torch.randn(P, ps, Hkv, hd, generator=g, device=cuda).to(dtype)
     bt, ctx = _block_tables(cuda, B, P, ps, NB, seed=B * hd)
-    before = paged_decode.launches
+    before = (paged_decode.launches, paged_decode.tc_launches)
     out = paged_decode(q, kp, vp, bt, ctx)
-    assert paged_decode.launches == before + 1
+    assert (paged_decode.launches, paged_decode.tc_launches) == (
+        before[0] + 1, before[1] + _decode_tc(dtype, hd, Hq // Hkv))
     ref = paged_decode_plain(q, kp, vp, bt, ctx)
     torch.cuda.synchronize()
     assert torch.equal(out[0], torch.zeros_like(out[0]))
@@ -80,9 +90,10 @@ def test_paged_decode_int8_kernel(cuda, dtype, B, Hq, Hkv, hd, ps, NB):
     vp, vs = pack_kv_plain(3 * torch.randn(P, ps, Hkv, hd, generator=g,
                                            device=cuda))
     bt, ctx = _block_tables(cuda, B, P, ps, NB, seed=B * hd + 1)
-    before = paged_decode.launches
+    before = (paged_decode.launches, paged_decode.tc_launches)
     out = paged_decode(q, kp, vp, bt, ctx, k_scales=ks, v_scales=vs)
-    assert paged_decode.launches == before + 1
+    assert (paged_decode.launches, paged_decode.tc_launches) == (
+        before[0] + 1, before[1] + _decode_tc(dtype, hd, Hq // Hkv))
     ref = paged_decode_plain(q, kp, vp, bt, ctx, ks, vs)
     torch.cuda.synchronize()
     assert out.dtype == dtype
@@ -170,7 +181,8 @@ def test_moe_gmm_ragged_kernel(cuda, dtype, T, K, E, D, F):
 
 
 FLASH_SHAPES = [(4, 4, 4, 64, 512), (4, 8, 2, 128, 300),
-                (8, 32, 4, 128, 1024), (4, 16, 2, 256, 129), (4, 8, 8, 32, 5)]
+                (8, 32, 4, 128, 1024), (4, 16, 2, 256, 129), (4, 8, 8, 32, 5),
+                (4, 32, 1, 64, 100)]           # G = 32: the CUDA cores
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -191,15 +203,176 @@ def test_flash_decode_kernel(cuda, dtype, B, Hq, Hkv, hd, L):
     q_pos = write.to(torch.int32).clone()
     q_pos[1] -= min(2, L // 2)            # slots past q_pos are masked
     k_pos[3] = -1                         # no valid slot at all
-    before = flash_decode.launches
+    before = (flash_decode.launches, flash_decode.tc_launches)
     out = flash_decode(q, kc, vc, k_pos, q_pos)
-    assert flash_decode.launches == before + 1
+    assert (flash_decode.launches, flash_decode.tc_launches) == (
+        before[0] + 1, before[1] + _decode_tc(dtype, hd, Hq // Hkv))
     ref = flash_decode_plain(q, kc, vc, k_pos, q_pos)
     torch.cuda.synchronize()
     assert out.dtype == dtype
     assert torch.equal(out[3], torch.zeros_like(out[3]))
     torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype],
                                atol=TOL[dtype])
+
+
+def _paged_inputs(cuda, B, ctx, NB, int8_pages, seed, dtype=torch.bfloat16,
+                  Hq=32, Hkv=4, hd=128, ps=16):
+    """q in ``dtype`` and a pool with a distinct page for every block of
+    every request, in ``dtype`` or int8 with scales."""
+    from repro_torch.kernels.kv_pack import pack_kv_plain
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    P = B * NB + 1
+    q = torch.randn(B, Hq, hd, generator=g, device=cuda).to(dtype)
+    kp = torch.randn(P, ps, Hkv, hd, generator=g, device=cuda)
+    vp = torch.randn(P, ps, Hkv, hd, generator=g, device=cuda)
+    scales = {}
+    if int8_pages:
+        kp, ks = pack_kv_plain(kp)
+        vp, vs = pack_kv_plain(vp)
+        scales = dict(k_scales=ks, v_scales=vs)
+    else:
+        kp, vp = kp.to(dtype), vp.to(dtype)
+    perm = torch.randperm(P - 1, generator=g, device=cuda) + 1
+    bt = perm.reshape(B, NB).to(torch.int32)
+    bt[torch.arange(NB, device=cuda)[None] * ps >= torch.as_tensor(
+        ctx, device=cuda)[:, None]] = 0          # unused entries: page 0
+    return q, kp, vp, bt, torch.as_tensor(ctx, dtype=torch.int32,
+                                          device=cuda), scales
+
+
+@pytest.mark.parametrize("int8_pages", [False, True])
+@pytest.mark.parametrize("row", [0, 3, 7])
+def test_paged_decode_batch_invariant(cuda, int8_pages, row):
+    """bf16 on the tensor cores: a request's output row is bitwise the same
+    in a batch of 8, alone (B = 1), and alone with a block table twice as
+    wide."""
+    from repro_torch.kernels.paged_decode import paged_decode
+    ctx = [1, 17, 300, 1024, 0, 511, 700, 129]
+    NB, ps = 64, 16
+    q, kp, vp, bt, ctx_t, scales = _paged_inputs(cuda, 8, ctx, NB,
+                                                 int8_pages, seed=12)
+    before = paged_decode.tc_launches
+    full = paged_decode(q, kp, vp, bt, ctx_t, **scales)
+    alone = paged_decode(q[row:row + 1].contiguous(), kp, vp,
+                         bt[row:row + 1].contiguous(),
+                         ctx_t[row:row + 1].contiguous(), **scales)
+    wide_bt = torch.zeros(1, 2 * NB, dtype=torch.int32, device=cuda)
+    wide_bt[:, :NB] = bt[row]
+    wide = paged_decode(q[row:row + 1].contiguous(), kp, vp, wide_bt,
+                        ctx_t[row:row + 1].contiguous(), **scales)
+    assert paged_decode.tc_launches == before + 3
+    assert torch.equal(alone[0], full[row])
+    assert torch.equal(wide[0], full[row])
+
+
+@pytest.mark.parametrize("row", [0, 1, 2, 5])
+def test_flash_decode_batch_invariant(cuda, row):
+    """bf16 on the tensor cores: a ring row's output is bitwise the same in
+    a batch of 8, alone (B = 1), and alone in a cache 384 slots longer whose
+    extra slots were never written."""
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.models.attention import ring_positions
+    g = torch.Generator(device=cuda).manual_seed(13)
+    B, Hq, Hkv, hd, L = 8, 32, 4, 128, 1024
+    q = torch.randn(B, Hq, hd, generator=g, device=cuda).bfloat16()
+    kc = torch.randn(B, L, Hkv, hd, generator=g, device=cuda).bfloat16()
+    vc = torch.randn(B, L, Hkv, hd, generator=g, device=cuda).bfloat16()
+    write = torch.tensor([99, 1500, 255, 600, 931, 1023, 0, 400],
+                         device=cuda)
+    k_pos = ring_positions(write, L)
+    q_pos = write.to(torch.int32)
+    before = flash_decode.tc_launches
+    full = flash_decode(q, kc, vc, k_pos, q_pos)
+    one = slice(row, row + 1)
+    alone = flash_decode(q[one].contiguous(), kc[one].contiguous(),
+                         vc[one].contiguous(), k_pos[one].contiguous(),
+                         q_pos[one].contiguous())
+    pad = 384
+    kw = torch.zeros(1, L + pad, Hkv, hd, dtype=kc.dtype, device=cuda)
+    vw = torch.zeros_like(kw)
+    kw[:, :L], vw[:, :L] = kc[one], vc[one]
+    pw = torch.full((1, L + pad), -1, dtype=torch.int32, device=cuda)
+    pw[:, :L] = k_pos[one]
+    wide = flash_decode(q[one].contiguous(), kw, vw, pw,
+                        q_pos[one].contiguous())
+    assert flash_decode.tc_launches == before + 3
+    assert torch.equal(alone[0], full[row])
+    assert torch.equal(wide[0], full[row])
+
+
+def test_decode_unaligned_q_takes_cuda_cores(cuda):
+    """bf16 at the serving widths, but q 2 bytes off a 16-byte boundary: the
+    tensor-core route cannot take it, the CUDA cores do, and agree."""
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_plain)
+    from repro_torch.kernels.paged_decode import (paged_decode,
+                                                  paged_decode_plain)
+    g = torch.Generator(device=cuda).manual_seed(14)
+    B, Hq, Hkv, hd, L = 2, 32, 4, 128, 64
+    buf = torch.randn(B * Hq * hd + 1, generator=g, device=cuda).bfloat16()
+    q = buf[1:].view(B, Hq, hd)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    kc = torch.randn(B, L, Hkv, hd, generator=g, device=cuda).bfloat16()
+    vc = torch.randn(B, L, Hkv, hd, generator=g, device=cuda).bfloat16()
+    k_pos = torch.arange(L, dtype=torch.int32, device=cuda).repeat(B, 1)
+    q_pos = torch.tensor([40, 63], dtype=torch.int32, device=cuda)
+    kp, vp = (t.reshape(B * L // 16, 16, Hkv, hd) for t in (kc, vc))
+    bt = torch.arange(B * L // 16, dtype=torch.int32,
+                      device=cuda).reshape(B, L // 16)
+    before = (flash_decode.launches, flash_decode.tc_launches,
+              paged_decode.launches, paged_decode.tc_launches)
+    out_f = flash_decode(q, kc, vc, k_pos, q_pos)
+    out_p = paged_decode(q, kp, vp, bt, q_pos + 1)
+    assert (flash_decode.launches, flash_decode.tc_launches,
+            paged_decode.launches, paged_decode.tc_launches) == (
+        before[0] + 1, before[1], before[2] + 1, before[3])
+    torch.testing.assert_close(
+        out_f.float(), flash_decode_plain(q, kc, vc, k_pos, q_pos).float(),
+        rtol=3e-2, atol=3e-2)
+    torch.testing.assert_close(
+        out_p.float(), paged_decode_plain(q, kp, vp, bt, q_pos + 1).float(),
+        rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kernel", ["paged", "paged_int8", "flash"])
+def test_decode_long_context(cuda, dtype, kernel):
+    """A 32768-token context at the serving widths (256 slices of the
+    context per KV head), both routes: against the plain version, each
+    request's output also relative to its own norm (``row_rel_err``)."""
+    from repro_torch.kernels.decode_route import ROW_TOL, row_rel_err
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_plain)
+    from repro_torch.kernels.paged_decode import (paged_decode,
+                                                  paged_decode_plain)
+    from repro_torch.models.attention import ring_positions
+    if kernel == "flash":
+        g = torch.Generator(device=cuda).manual_seed(15)
+        B, Hq, Hkv, hd, L = 2, 32, 4, 128, 32768
+        q = torch.randn(B, Hq, hd, generator=g, device=cuda).to(dtype)
+        kc = torch.randn(B, L, Hkv, hd, generator=g, device=cuda).to(dtype)
+        vc = torch.randn(B, L, Hkv, hd, generator=g, device=cuda).to(dtype)
+        write = torch.tensor([40000, 20000], device=cuda)
+        k_pos, q_pos = ring_positions(write, L), write.to(torch.int32)
+        before = flash_decode.tc_launches
+        out = flash_decode(q, kc, vc, k_pos, q_pos)
+        ref = flash_decode_plain(q, kc, vc, k_pos, q_pos)
+        tc = flash_decode.tc_launches - before
+    else:
+        q, kp, vp, bt, ctx, scales = _paged_inputs(
+            cuda, 2, [32768, 20001], 2048, kernel == "paged_int8", seed=16,
+            dtype=dtype)
+        before = paged_decode.tc_launches
+        out = paged_decode(q, kp, vp, bt, ctx, **scales)
+        ref = paged_decode_plain(q, kp, vp, bt, ctx, *scales.values())
+        tc = paged_decode.tc_launches - before
+    torch.cuda.synchronize()
+    assert tc == (dtype == torch.bfloat16)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    # the outputs are about 0.01 here, so the absolute bar above cannot see
+    # a dropped slice; each request's error against its own norm can
+    assert row_rel_err(out, ref) <= ROW_TOL[dtype]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
