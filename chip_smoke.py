@@ -6,19 +6,25 @@
 2. holds each kernel against its plain PyTorch version on the card, at the
    shapes the serving path gives it, and times both (CUDA events, L2
    flushed before every launch), and the one PyTorch call that computes the
-   same function where there is one; for the two expert GEMMs and the two
-   decode kernels it prints the route each shape took (tensor cores or
-   CUDA cores). The decode kernels also get their device time per call
-   from ``torch.profiler`` (partial and combine passes, without the
-   wrapper's host work; for ``flash_decode`` also SDPA's) and a row at a
+   same function where there is one; every kernel and library call also
+   gets its device time per call from ``torch.profiler`` (the kernels
+   alone, without the wrapper's host work). The int8 KV write of a layer
+   (``pack_kv_into_pages``, one launch) is held bit for bit to its plain
+   twin on every page but the garbage page; the statistics kernel is held
+   bit for bit on both its paths (one block, and the grid with its memsets
+   above ``SINGLE_BLOCK_SLOTS``). For the two expert GEMMs and
+   the two decode kernels it prints the route each shape took (tensor
+   cores or CUDA cores); the decode kernels also get a row at a
    32768-token context, and each request's output row is held to its own
    norm as well (``decode_route.row_rel_err``), since at long contexts the
    outputs are far smaller than the absolute bf16 bar;
 3. checks the port end to end on a small input: a float32 twin of the
    model served on the card through the kernels and on the CPU through the
    plain versions must give the same token streams and statistics, on one
-   engine pair, through ``serve_real_cluster`` on int8 KV pages with
-   experts migrating, without and with a crash of engine 1, and through
+   engine pair (split steps; mixed steps; int8 pages with mixed steps and
+   prefix sharing, whose copy-on-write pages the fused write fills),
+   through ``serve_real_cluster`` on int8 KV pages with experts migrating,
+   without and with a crash of engine 1, and through
    ``serve_real_cluster`` over two dense-cache ``RealModelEngine``s in each
    MoE dispatch mode (ragged, capacity-padded);
 4. serves 8 requests on two ``PagedRealEngine``s that share one runner, at
@@ -27,13 +33,15 @@
    finished, tokens in the vocabulary, each kernel launched, and the MoE
    statistics B and A consistent with the tokens routed;
 5. serves the same requests again under ``torch.profiler`` and prints the
-   device's busy share and the kernels that take the device time (step 7
-   is profiled the same way);
+   device's busy share and the kernels that take the device time (steps 6
+   and 7 are profiled the same way);
 6. serves 16 requests arriving over time through ``serve_real_cluster``
    (the Gimbal control plane: Algorithm-1 dispatch, profiler, placement,
    expert migration) on two engines with int8 KV pages at the same width,
    and checks that every request finished, both engines served, experts
-   migrated on the card, and all five kernels of that path launched;
+   migrated on the card, and all five kernels of that path launched; its
+   profile must show one int8 KV write kernel per layer-step and one
+   single-block statistics kernel per MoE layer-step;
 7. serves 16 requests arriving over time through ``serve_real_cluster`` on
    two dense-cache ``RealModelEngine``s with the capacity-padded MoE
    dispatch at the same width (8 slots of 1024 tokens each), experts
@@ -85,7 +93,8 @@ def parse_args():
 
 # ------------------------------------------------------------------ timing
 class Timer:
-    """Mean CUDA-event time of ``fn`` with L2 flushed before each launch."""
+    """Mean CUDA-event time of ``fn`` with L2 flushed before each launch,
+    and (``device``) its device time from torch.profiler."""
 
     def __init__(self, iters: int = 10, warmup: int = 2):
         self.iters, self.warmup = iters, warmup
@@ -111,27 +120,31 @@ class Timer:
         """Mean device time per call of ``fn`` from torch.profiler, L2
         flushed before each call: the kernels alone, without the host work
         around them. ``match``: the ``n_kernels`` kernels whose names hold
-        one of these, each launched once a call; None: every device event
-        of ``fn`` (a library call, whatever kernels it picks), the flush
-        left out: here the flush is a bitwise_not, a kernel no timed
-        function launches. Returns (ms, {kernel: ms})."""
+        one of these; None: every device event of ``fn`` (a library call,
+        whatever kernels it picks), the flush left out: here the flush is a
+        bitwise_not, a kernel no timed function launches. The profiler now
+        and then drops an event, or every event of a profile: a profile is
+        taken (up to four times) until it holds each kernel at least once a
+        call less one event (launches per call: its count over the calls,
+        rounded), and, for a library call, until two such profiles agree on
+        its kernels, so that one the profiler missed entirely shows. A
+        kernel's time per call is its mean over its events times its
+        launches per call. Returns (ms, {kernel: ms})."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         for _ in range(self.warmup):
             fn()
         torch.cuda.synchronize()
-        for _ in range(3):         # a profile now and then misses kernels
-            parts, counts, flushes = {}, {}, 0
+        seen, complete = set(), 0
+        for _ in range(4):
+            parts, counts = {}, {}
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(self.iters):
                     self.flush_buf.bitwise_not_()
                     fn()
                 torch.cuda.synchronize()
             for e in prof.key_averages():
-                if e.device_type != DeviceType.CUDA:
-                    continue
-                if "bitwise_not" in e.key:
-                    flushes += e.count
+                if e.device_type != DeviceType.CUDA or "bitwise_not" in e.key:
                     continue
                 hit = [m for m in match if m in e.key] if match else [""]
                 if not hit:
@@ -139,20 +152,29 @@ class Timer:
                 name = re.search(r"\w*" + hit[0] + r"\w*", e.key).group(0) \
                     if match else e.key[:60]
                 parts[name] = parts.get(name, 0.0) \
-                    + e.self_device_time_total / 1e3 / self.iters
+                    + e.self_device_time_total / 1e3
                 counts[name] = counts.get(name, 0) + e.count
-            seen = flushes == self.iters and (
-                len(parts) == n_kernels and all(
-                    c == self.iters for c in counts.values())
-                if match else bool(parts))
-            if seen:
+            per_call = {k: max(1, round(n / self.iters))
+                        for k, n in counts.items()}
+            whole = bool(counts) and all(
+                n >= per_call[k] * self.iters - 1 for k, n in counts.items())
+            if match:
+                if whole and len(parts) == n_kernels:
+                    break
+                continue
+            if not set(counts) <= seen:   # a kernel no earlier profile saw
+                seen |= set(counts)
+                complete = 0
+            complete += whole and set(counts) == seen
+            if complete == 2:
                 break
         else:
             raise AssertionError(f"profiler did not see the kernels of "
-                                 f"{match or 'the call'} ({n_kernels}) and "
-                                 f"the flush {self.iters} times each in three "
-                                 f"tries: {counts}, {flushes} flushes")
-        return sum(parts.values()), parts
+                                 f"{match or 'the call'} in {self.iters} "
+                                 f"calls (less one event) in four tries: "
+                                 f"{counts}")
+        per_call = {k: parts[k] / counts[k] * per_call[k] for k in parts}
+        return sum(per_call.values()), per_call
 
 
 def bound_ms(nbytes: float, ops: float, kind: str):
@@ -173,9 +195,18 @@ def route_name(tc_launched: int) -> str:
 DECODE_KERNELS = ("decode_partial", "decode_tc", "combine")  # both passes
 
 
-def device_times(timer, run):
-    ms, parts = timer.device(run, DECODE_KERNELS, n_kernels=2)
+def device_times(timer, run, match=DECODE_KERNELS, n_kernels=2):
+    """The kernel's device time per call (the decode kernels: both
+    passes)."""
+    ms, parts = timer.device(run, match, n_kernels=n_kernels)
     return {"device_ms": ms, "device_parts": parts}
+
+
+def library_times(timer, run):
+    """Event and device time of a library call, the yardstick of a row."""
+    ms, parts = timer.device(run)
+    return {"library_ms": timer(run), "library_device_ms": ms,
+            "library_device_parts": parts}
 
 
 def check_paged_decode(timer, dtype, int8_pages=False, long_ctx=False):
@@ -274,19 +305,21 @@ def check_gmm(timer, dtype, T, D, F, which):
     nbytes = rows * D * item + hit * D * F * item + Np * F * 4 \
         + 4 * (disp.tile_expert.numel() + 2 * E + 1)
     ops = 2.0 * rows * D * F
-    lib = None
+    lib = {"library_ms": None}
     if dtype == torch.bfloat16 and hasattr(torch, "_grouped_mm"):
         offs = disp.padded_offsets[1:].contiguous()
         # bf16 out: the library rounds its output to the input type
-        lib = timer(lambda: torch._grouped_mm(disp.xs, w, offs=offs))
+        lib = library_times(timer, lambda: torch._grouped_mm(disp.xs, w,
+                                                             offs=offs))
+    run = lambda: moe_gmm_ragged(*args, n_block=nb)  # noqa: E731
     return {"shape": f"{which}: T={T} K={K} E={E} D={D} F={F} nb={nb} "
                      f"Np={Np} rows={rows} experts_hit={hit}",
-            "err": err,
-            "ms": timer(lambda: moe_gmm_ragged(*args, n_block=nb)),
+            "err": err, "ms": timer(run),
+            **device_times(timer, run, ("gmm_",), 1),
             "plain_ms": timer(lambda: moe_gmm_ragged_plain(*args,
                                                            n_block=nb)),
             "bound": bound_ms(nbytes, ops, str(dtype).split(".")[1]),
-            "library_ms": lib, "route": route}
+            **lib, "route": route}
 
 
 def check_flash_decode(timer, dtype, long_ctx=False):
@@ -381,18 +414,23 @@ def check_padded_gmm(timer, dtype, E, C, D, F, which):
     nbytes = (x.numel() + w.numel()) * item + out.numel() * 4
     # the library yardstick: one torch.bmm in the input type (its output is
     # rounded to that type)
+    run = lambda: moe_gmm(x, w)  # noqa: E731
     return {"shape": f"{which}: ({E}, {C}, {D}) x ({E}, {D}, {F})",
-            "err": err,
-            "ms": timer(lambda: moe_gmm(x, w)),
+            "err": err, "ms": timer(run),
+            **device_times(timer, run, ("gmm_",), 1),
             "plain_ms": timer(lambda: moe_gmm_plain(x, w)),
             "bound": bound_ms(nbytes, 2.0 * E * C * D * F,
                               str(dtype).split(".")[1]),
-            "library_ms": timer(lambda: torch.bmm(x, w)), "route": route}
+            **library_times(timer, lambda: torch.bmm(x, w)), "route": route}
 
 
 def check_stats(timer, T, K):
+    """Up to SINGLE_BLOCK_SLOTS slots (every call of the int8 cluster serve)
+    the kernel is one block: one launch, no memset. Above it (a padded
+    prefill group of 4 lanes x 512 tokens at top-8 is 16384 slots) two
+    memsets and the grid; its device time counts the memsets."""
     from repro_torch.kernels.source_expert_count import (
-        source_expert_count, source_expert_count_plain)
+        SINGLE_BLOCK_SLOTS, source_expert_count, source_expert_count_plain)
     g = torch.Generator(device="cuda").manual_seed(3)
     E, S = 128, 2
     ids = torch.randint(-1, E, (T, K), generator=g, device="cuda",
@@ -415,14 +453,20 @@ def check_stats(timer, T, K):
     if not lib_ok:
         log("library: torch.bincount does not reproduce (B, A); not timed")
     nbytes = 4 * (ids.numel() + src.numel() + E + S * E)
-    return {"shape": f"T={T} K={K} E={E} S={S} (ids include -1)",
-            "err": 0.0,
-            "ms": timer(lambda: source_expert_count(ids, src, **kw)),
+    run = lambda: source_expert_count(ids, src, **kw)  # noqa: E731
+    one_block = T * K <= SINGLE_BLOCK_SLOTS
+    path = (("source_expert_count_block",), 1) if one_block \
+        else (("source_expert_count_grid", "Memset"), 2)
+    return {"shape": f"T={T} K={K} E={E} S={S} (ids include -1), "
+                     f"{'one block' if one_block else 'grid, two memsets'}",
+            "err": 0.0, "ms": timer(run),
+            **device_times(timer, run, *path),
             "plain_ms": timer(lambda: source_expert_count_plain(ids, src,
                                                                 **kw)),
             "bound": bound_ms(nbytes, 2.0 * ids.numel(), "int32"),
-            "library_ms": timer(lambda: torch.bincount(
-                keys, minlength=(S + 1) * E)) if lib_ok else None}
+            **(library_times(timer, lambda: torch.bincount(
+                keys, minlength=(S + 1) * E)) if lib_ok
+               else {"library_ms": None})}
 
 
 def check_pack(timer, dtype, shape, which):
@@ -440,11 +484,68 @@ def check_pack(timer, dtype, shape, which):
     rows, hd = s.numel(), shape[-1]
     nbytes = rows * hd * x.element_size() + rows * hd + rows * 4
     # |x|, max, one division and one conversion per value, at the f32 rate
+    run = lambda: pack_kv(x)  # noqa: E731
     return {"shape": f"{which}: {tuple(shape)} (tokens, heads, hd)",
-            "err": 0.0,
-            "ms": timer(lambda: pack_kv(x)),
+            "err": 0.0, "ms": timer(run),
+            **device_times(timer, run, ("pack_kv_kernel",), 1),
             "plain_ms": timer(lambda: pack_kv_plain(x)),
             "bound": bound_ms(nbytes, 4.0 * rows * hd, "float32"),
+            "library_ms": None}
+
+
+def check_pack_paged(timer, dtype, B, S, which):
+    """The whole int8 KV write of one layer in one launch: K and V of a
+    (B, S) chunk at full width (4 KV heads of 128) into a pool of int8
+    pages of 16 tokens, against the plain twin (``pack_kv_plain`` and the
+    four index-puts), bit for bit on every page but page 0, where invalid
+    rows race. Decode: 8 lanes at assorted contexts, lane 3 idle; prefill:
+    one 512-token chunk starting mid-page, its last 12 rows padding."""
+    from repro_torch.kernels.kv_pack import (pack_kv_into_pages,
+                                             pack_kv_into_pages_plain)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    Hkv, hd, ps, NB = 4, 128, 16, 64
+    P = B * NB + 1
+    bt = (torch.randperm(P - 1, generator=g, device="cuda") + 1) \
+        .reshape(B, NB).to(torch.int32)
+    if S == 1:
+        starts = torch.tensor([0, 1, 17, 255, 511, 700, 1000, 1023],
+                              device="cuda")[:B]
+        lens = torch.ones(B, dtype=torch.int32, device="cuda")
+        lens[3 % B] = 0
+    else:
+        starts = torch.full((B,), 37, device="cuda")
+        lens = torch.full((B,), S - 12, dtype=torch.int32, device="cuda")
+    positions = (starts[:, None] + torch.arange(S, device="cuda")) \
+        .to(torch.int32)
+    valid = torch.arange(S, device="cuda")[None] < lens[:, None]
+    k, v = ((torch.randn(B, S, Hkv, hd, generator=g, device="cuda")
+             * torch.rand(B, S, Hkv, 1, generator=g, device="cuda") * 8)
+            .to(dtype) for _ in range(2))
+    pools = [torch.randint(-127, 128, (P, ps, Hkv, hd), generator=g,
+                           device="cuda", dtype=torch.int8)
+             for _ in range(2)] + \
+        [torch.rand(P, ps, Hkv, generator=g, device="cuda") for _ in range(2)]
+    plain = [t.clone() for t in pools]
+    args = (bt, positions, valid)
+    pack_kv_into_pages(k, v, *pools, *args)
+    pack_kv_into_pages_plain(k, v, *plain, *args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a[1:], b[1:]) for a, b in zip(pools, plain)):
+        raise AssertionError(f"pack_kv_into_pages [{dtype}] {which}: codes "
+                             "or scales differ from the plain twin")
+    n, n_valid = B * S * Hkv, int(valid.sum()) * Hkv
+    # K and V read, codes and scales of the valid rows written, the slots
+    nbytes = 2 * (n * hd * k.element_size() + n_valid * (hd + 4)) \
+        + 4 * (bt.numel() + positions.numel()) + valid.numel()
+    run = lambda: pack_kv_into_pages(k, v, *pools, *args)  # noqa: E731
+    return {"shape": f"{which}: K and V ({B}, {S}, {Hkv}, {hd}) into int8 "
+                     f"pages of {ps}, {int(valid.sum())} valid rows "
+                     f"(one launch: slots, quantization, scatter)",
+            "err": 0.0, "ms": timer(run),
+            **device_times(timer, run, ("pack_kv_kernel",), 1),
+            "plain_ms": timer(lambda: pack_kv_into_pages_plain(
+                k, v, *plain, *args)),
+            "bound": bound_ms(nbytes, 2 * 4.0 * n * hd, "float32"),
             "library_ms": None}
 
 
@@ -470,13 +571,15 @@ def check_unpack(timer, dtype, shape):
             "not timed")
     n = q.numel()
     nbytes = n + s.numel() * 4 + n * out.element_size()
+    run = lambda: unpack_kv(q, s, dtype)  # noqa: E731
     return {"shape": f"prefill gather: {tuple(shape)} (B, L, Hkv, hd)",
-            "err": 0.0,
-            "ms": timer(lambda: unpack_kv(q, s, dtype)),
+            "err": 0.0, "ms": timer(run),
+            **device_times(timer, run, ("unpack_kv_kernel",), 1),
             "plain_ms": timer(lambda: unpack_kv_plain(q, s, dtype)),
             "bound": bound_ms(nbytes, 2.0 * n, "float32"),
-            "library_ms": timer(lambda: torch.mul(q, s[..., None], out=buf))
-            if lib_ok else None}
+            **(library_times(timer, lambda: torch.mul(q, s[..., None],
+                                                      out=buf))
+               if lib_ok else {"library_ms": None})}
 
 
 def kernel_phase():
@@ -527,6 +630,12 @@ def kernel_phase():
         record("paged_decode", dt, check_paged_decode(timer, dtype))
         record("paged_decode", dt + "/int8",
                check_paged_decode(timer, dtype, int8_pages=True))
+        # the int8 KV write of a layer, as the main path issues it (the
+        # kernels line's pack_kv row is its decode shape), then the plain
+        # pack, the counterpart of pack_kv_pallas
+        for B, S, which in ((8, 1, "decode"), (1, 512, "prefill chunk")):
+            record("pack_kv", dt + "/paged",
+                   check_pack_paged(timer, dtype, B, S, which))
         for shape, which in (((8, 1, 4, 128), "decode"),
                              ((512, 4, 128), "prefill")):
             record("pack_kv", dt, check_pack(timer, dtype, shape, which))
@@ -556,7 +665,9 @@ def kernel_phase():
                 (6, 37, 100, 130, "odd C, D, F")):
             record("moe_gmm", dt,
                    check_padded_gmm(timer, dtype, E, C, D, F, which))
-    for T, K in ((2048, 1), (256, 8)):
+    # a decode step first (the kernels line's row), then a 256-token chunk,
+    # the grid above SINGLE_BLOCK_SLOTS, and the sorted-ids shape of before
+    for T, K in ((8, 8), (256, 8), (2048, 8), (2048, 1)):
         record("source_expert_count", "int32",
                check_stats(timer, T, K))
     return results
@@ -595,32 +706,40 @@ def check_routes(phase, launches, tc, mains):
                                  "cores")
 
 
-def make_requests(cfg, n, lo, hi, max_new, seed, gap=0.001):
+def make_requests(cfg, n, lo, hi, max_new, seed, gap=0.001, shared=0):
+    """``n`` requests with prompts of ``lo`` to ``hi`` random tokens, each
+    after a common prefix of ``shared`` tokens."""
     from repro_torch.serving import Request
     rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, cfg.vocab_size, shared).tolist()
     reqs = []
     for i in range(n):
-        plen = int(rng.integers(lo, hi + 1))
-        reqs.append(Request(req_id=i, prompt_len=plen,
+        toks = prefix + rng.integers(0, cfg.vocab_size,
+                                     int(rng.integers(lo, hi + 1))).tolist()
+        reqs.append(Request(req_id=i, prompt_len=len(toks),
                             max_new_tokens=max_new, arrival_time=gap * i,
-                            prompt_tokens=rng.integers(
-                                0, cfg.vocab_size, plen).tolist()))
+                            prompt_tokens=toks))
     return reqs
 
 
-def serve(cfg, params, ecfg, reqs):
-    """Two engines on one runner; requests alternate between them. Returns
-    (engines, per-step seconds, wall seconds, (B, A) per engine)."""
+def serve(cfg, params, ecfg, reqs, every=0):
+    """Two engines on one runner; requests alternate between them, request
+    i arriving before step ``i * every``. Returns (engines, per-step
+    seconds, wall seconds, (B, A) per engine)."""
     from repro_torch.serving import (PagedModelRunner, PagedRealEngine)
     runner = PagedModelRunner(cfg, params, ecfg, n_sources=2)
     engines = [PagedRealEngine(i, cfg, params, ecfg, runner=runner)
                for i in range(2)]
-    for i, r in enumerate(reqs):
-        engines[i % 2].enqueue(r, 0.0)
     cuda = ecfg.device == "cuda"
     steps, now = [], 0.0
+    waiting = list(enumerate(reqs))
     t_all = time.perf_counter()
-    while any(e.has_work for e in engines):
+    for n in range(10001):
+        while waiting and waiting[0][0] * every <= n:
+            i, r = waiting.pop(0)
+            engines[i % 2].enqueue(r, now)
+        if not waiting and not any(e.has_work for e in engines):
+            break
         for e in engines:
             if not e.has_work:
                 continue
@@ -630,8 +749,8 @@ def serve(cfg, params, ecfg, reqs):
                 torch.cuda.synchronize()
             steps.append(time.perf_counter() - t0)
         now += 0.01
-        if len(steps) > 10000:
-            raise AssertionError("serving did not finish in 10000 steps")
+    else:
+        raise AssertionError("serving did not finish in 10000 rounds")
     wall = time.perf_counter() - t_all
     return engines, steps, wall, [e.window_stats() for e in engines]
 
@@ -775,34 +894,59 @@ def reference_phase():
     params = tfm.init_params(cfg, generator=torch.Generator().manual_seed(0),
                              device="cpu")
     params_gpu = tree_map(lambda t: t.to("cuda"), params)
-    for mixed in (False, True):
+    sharing = dict(kv_dtype="int8", mixed_steps=True, prefix_sharing=True)
+    for kw in (dict(), dict(mixed_steps=True), sharing):
         out = {}
         for dev, p in (("cpu", params), ("cuda", params_gpu)):
             ecfg = PagedEngineConfig(page_size=8, n_pages=64,
                                      max_blocks_per_req=8, max_batch=4,
                                      token_budget=16, chunk_buckets=(8, 16),
-                                     mixed_steps=mixed, device=dev)
-            reqs = make_requests(cfg, 6, 3, 40, 6, seed=11)
-            engines, _, _, stats = serve(cfg, p, ecfg, reqs)
-            out[dev] = ([r.output_tokens for r in reqs], stats)
-        toks_c, st_c = out["cpu"]
-        toks_g, st_g = out["cuda"]
+                                     device=dev, **kw)
+            if kw is sharing:
+                # a 20-token system prompt, requests two steps apart, so
+                # that later ones find it registered and copy its
+                # partial page on write
+                reqs = make_requests(cfg, 6, 3, 30, 6, seed=11, shared=20)
+                engines, _, _, stats = serve(cfg, p, ecfg, reqs, every=2)
+            else:
+                reqs = make_requests(cfg, 6, 3, 40, 6, seed=11)
+                engines, _, _, stats = serve(cfg, p, ecfg, reqs)
+            out[dev] = ([r.output_tokens for r in reqs], stats,
+                        [(e.prefix_hit_tokens, e.pool.stat_cow_copies)
+                         for e in engines])
+        (toks_c, st_c, pre_c), (toks_g, st_g, pre_g) = out["cpu"], out["cuda"]
         same_stats = all(np.array_equal(a, b) for sc, sg in zip(st_c, st_g)
                          for a, b in zip(sc, sg))
-        if toks_c != toks_g or not same_stats:
-            raise AssertionError(f"float32 twin (mixed_steps={mixed}): card "
-                                 "and CPU disagree")
-        log(f"reference: float32 twin, mixed_steps={mixed}: card kernels and "
-            f"CPU plain versions give the same {sum(map(len, toks_c))} "
-            "tokens and B/A statistics")
+        what = ", ".join(f"{k}={v}" for k, v in kw.items()) or "split steps"
+        if toks_c != toks_g or not same_stats or pre_c != pre_g:
+            raise AssertionError(f"float32 twin ({what}): card and CPU "
+                                 f"disagree (tokens equal: {toks_c == toks_g}"
+                                 f", statistics equal: {same_stats}, prefix "
+                                 f"hits and copies {pre_g} against {pre_c})")
+        hits, cows = (sum(x) for x in zip(*pre_g))
+        if kw is sharing and not (hits and cows):
+            raise AssertionError(f"float32 twin ({what}): expected prefix "
+                                 f"hits and copy-on-write pages, got {hits} "
+                                 f"hit tokens and {cows} copies")
+        log(f"reference: float32 twin, {what}: card kernels and CPU plain "
+            f"versions give the same {sum(map(len, toks_c))} tokens and B/A "
+            f"statistics ({hits} prefix-hit tokens, {cows} copy-on-write "
+            f"pages)")
     cluster_reference(cfg, params, params_gpu)
     dense_cluster_reference(cfg, params, params_gpu)
+
+
+PROFILE_GROUPS = (("expert GEMM", ("gmm_",)),              # both, both routes
+                  ("decode", DECODE_KERNELS),              # both passes
+                  ("int8 KV write", ("::pack_kv_kernel",)),
+                  ("stats", ("source_expert_count",)))
 
 
 def profiled(label, run):
     """``run()`` under torch.profiler: the device's busy share of the wall
     time, and the kernels that take the device time. ``run`` returns a
-    phrase saying what it served."""
+    phrase saying what it served. Returns the device events, as (self
+    device us, count, name) rows, and the wall seconds."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -821,9 +965,10 @@ def profiled(label, run):
     log(f"profile {label}: {what} in {wall * 1e3:.1f} ms wall (profiled), "
         f"device busy {busy_ms:.1f} ms = "
         f"{100 * busy_ms / (wall * 1e3):.1f}% of the wall time")
-    for what, match in (("expert GEMM", ("gmm_",)),   # both, both routes
-                        ("decode", DECODE_KERNELS)):   # both passes
+    for what, match in PROFILE_GROUPS:
         mine = [r for r in rows if any(m in r[2] for m in match)]
+        if not mine:
+            continue
 
         def short(key):    # "void (anonymous namespace)::gmm_x<1, 1>(...)"
             i = key.find("::")
@@ -838,6 +983,22 @@ def profiled(label, run):
     for us, n, key in sorted(rows, reverse=True)[:12]:
         log(f"profile {label}:   {us / 1e3:9.2f} ms  {n:6d} calls  "
             f"{key[:90]}")
+    return rows, wall
+
+
+def counted_forwards(tfm, calls):
+    """Wrap the paged model's two entry points (a mixed step goes through
+    the prefill one) to count each forward pass into ``calls``; returns a
+    function that restores them."""
+    saved = {}
+    for name in ("prefill_chunk_paged", "decode_step_paged"):
+        fn = saved[name] = getattr(tfm, name)
+
+        def counted(*a, _fn=fn, **kw):
+            calls[0] += 1
+            return _fn(*a, **kw)
+        setattr(tfm, name, counted)
+    return lambda: [setattr(tfm, n, f) for n, f in saved.items()]
 
 
 def serve_phase(args, counters):
@@ -1003,7 +1164,56 @@ def cluster_phase(args, cfg, params, counters):
         f"the bf16 pool ({i8} against {fp} bytes per page across "
         f"{cfg.n_layers} layers); launches {launches}, on the tensor cores "
         f"{tc}")
+    del res, engines               # the runner's migrated weights: 10.5 GiB
+
+    forwards = [0]
+
+    def again():
+        res, _, _ = serve_cluster(
+            cfg, params, ecfg, make_requests(cfg, 16, 100, 900, new_tokens,
+                                             seed=args.seed + 1, gap=0.1),
+            window_tokens=1024, placement_cfg=PlacementConfig.uncalibrated())
+        return f"{res.signals['rounds']} rounds, {forwards[0]} forward passes"
+
+    restore = counted_forwards(tfm, forwards)
+    try:
+        rows, _ = profiled("cluster", again)
+    finally:
+        restore()
+    profile_write_and_stats(rows, forwards[0] * cfg.n_layers,
+                            forwards[0] * cfg.n_moe_layers)
     return launches, tc
+
+
+def profile_write_and_stats(rows, layer_steps, moe_steps):
+    """From the profiled int8 cluster serve: the int8 KV write is one
+    kernel per layer-step, and the statistics one single-block kernel per
+    MoE layer-step, with no memset of their own (the grid path's two). The
+    profiler now and then drops an event, so a count may fall short of the
+    steps by 1% (two launches a step would double it)."""
+    def count(name):
+        return sum(n for _, n, key in rows if name in key)
+
+    def one_each(n, steps):
+        return steps - steps // 100 <= n <= steps
+
+    writes, blocks = count("::pack_kv_kernel"), count(
+        "source_expert_count_block")
+    grids = count("source_expert_count_grid")
+    if not one_each(writes, layer_steps) or not one_each(blocks, moe_steps) \
+            or grids:
+        raise AssertionError(f"profile cluster: expected one int8 write "
+                             f"kernel per layer-step ({layer_steps}) and one "
+                             f"single-block stats kernel per MoE layer-step "
+                             f"({moe_steps}), saw {writes} writes, {blocks} "
+                             f"single-block and {grids} grid stats kernels")
+    n_kernels = sum(n for _, n, key in rows if "emset" not in key)
+    memsets = sum(n for _, n, key in rows if "emset" in key)
+    log(f"profile cluster: {layer_steps} layer-steps: {writes} int8 KV write "
+        f"kernels (one per layer-step), {blocks} stats kernels on one block "
+        f"(one per MoE layer-step, no memset); {n_kernels} device kernels "
+        f"and {memsets} memsets in all, {n_kernels / layer_steps:.1f} kernels "
+        f"per layer-step")
 
 
 def timed_migrations(tfm, moves):
@@ -1201,8 +1411,9 @@ def main() -> int:
             "bound_ms": main_row["bound"][0],
             "bound_by": main_row["bound"][1],
             "library_ms": main_row["library_ms"],
-            **({"device_ms": main_row["device_ms"]}
-               if "device_ms" in main_row else {}),
+            "device_ms": main_row["device_ms"],
+            **({"library_device_ms": main_row["library_device_ms"]}
+               if "library_device_ms" in main_row else {}),
             "shape": main_row["shape"], **routes,
             "shapes": [{"dtype": dt, "shape": r["shape"], "err": r["err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"],

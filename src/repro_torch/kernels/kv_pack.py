@@ -8,10 +8,15 @@ times the tokens of the 2-byte layout. Values are
 ``round_half_even(x / max(scale, 1e-8))``; a zero row gives scale 0 and
 zeros.
 
-``pack_kv`` runs on every KV write into int8 pages; ``unpack_kv`` is the
-dequantization of gathered pages in chunked prefill (paged decode
-dequantizes inside its own kernel). Each launches ``csrc/kv_pack.cu`` on a
-CUDA tensor and runs its plain version on a CPU tensor.
+``pack_kv_into_pages`` is the whole KV write of a layer into int8 pages:
+it computes each written row's page slot from the block tables, quantizes
+the rows of K and V and stores codes and scales in place, in one launch.
+``pack_kv`` is the same quantization into fresh tensors, the counterpart
+of the reference's ``pack_kv_pallas``. ``unpack_kv`` is the dequantization
+of gathered pages in chunked prefill (paged decode dequantizes inside its
+own kernel). Each launches ``csrc/kv_pack.cu`` on a CUDA tensor and runs
+its plain version on a CPU tensor; ``pack_kv.launches`` counts the
+launches of both pack entries.
 """
 from __future__ import annotations
 
@@ -29,6 +34,36 @@ def pack_kv_plain(t):
     s = x.abs().amax(dim=-1) / torch.full((), 127.0, device=x.device)
     q = torch.round(x / torch.clamp(s, min=1e-8)[..., None]).to(torch.int8)
     return q, s
+
+
+def page_slots(block_tables, positions, valid, page_size):
+    """The (page, offset) each written row of a (B, S) chunk goes to,
+    flattened to (B*S,) int64: position p of row b lands in page
+    ``block_tables[b, clamp(p // page_size, 0, NB - 1)]`` at ``p %
+    page_size``; invalid rows go to slot 0 of page 0, the garbage page."""
+    B = positions.shape[0]
+    NB = block_tables.shape[1]
+    bidx = torch.arange(B, device=positions.device)[:, None]
+    blk = torch.clamp(torch.div(positions, page_size, rounding_mode="floor"),
+                      0, NB - 1).long()
+    zero = torch.zeros((), dtype=torch.long, device=positions.device)
+    page = torch.where(valid, block_tables.long()[bidx, blk], zero)
+    off = torch.where(valid, (positions % page_size).long(), zero)
+    return page.reshape(-1), off.reshape(-1)
+
+
+def pack_kv_into_pages_plain(k, v, pool_k, pool_v, k_scale, v_scale,
+                             block_tables, positions, valid):
+    """:func:`pack_kv_plain` of k and v (B, S, Hkv, hd), then their codes
+    and scales scattered in place into the int8 pages pool_k, pool_v
+    (P, ps, Hkv, hd) and k_scale, v_scale (P, ps, Hkv) at
+    :func:`page_slots`."""
+    page, off = page_slots(block_tables, positions, valid, pool_k.shape[1])
+    Hkv, hd = pool_k.shape[2], pool_k.shape[3]
+    for x, pool, scale in ((k, pool_k, k_scale), (v, pool_v, v_scale)):
+        q, s = pack_kv_plain(x)
+        scale[page, off] = s.reshape(-1, Hkv)
+        pool[page, off] = q.reshape(-1, Hkv, hd)
 
 
 def unpack_kv_plain(q, s, dtype=torch.float32):
@@ -53,6 +88,62 @@ def pack_kv(t):
                s.numel(), hd, ops.DTYPE_CODE[t.dtype], device=t.device)
     pack_kv.launches += 1
     return q, s
+
+
+def pack_kv_into_pages(k, v, pool_k, pool_v, k_scale, v_scale, block_tables,
+                       positions, valid):
+    """Quantize k and v (B, S, Hkv, hd) bf16/f32 row by row and write codes
+    and scales in place into the int8 pages pool_k, pool_v (P, ps, Hkv, hd)
+    and k_scale, v_scale (P, ps, Hkv) f32, at the slots :func:`page_slots`
+    gives from block_tables (B, NB) int32, positions (B, S) int32 and valid
+    (B, S) bool. On a CUDA tensor one launch does it all; invalid rows race
+    on page 0, the garbage page."""
+    if k.device.type == "cpu":
+        return pack_kv_into_pages_plain(k, v, pool_k, pool_v, k_scale,
+                                        v_scale, block_tables, positions,
+                                        valid)
+    if k.device.type != "cuda":
+        raise ValueError(f"pack_kv_into_pages: no kernel for device "
+                         f"{k.device}")
+    name = "pack_kv_into_pages"
+    if k.dtype not in ops.DTYPE_CODE or v.dtype != k.dtype:
+        raise TypeError(f"{name}: k and v must both be bf16 or f32, got "
+                        f"{k.dtype} and {v.dtype}")
+    if pool_k.dtype != torch.int8 or pool_v.dtype != torch.int8 \
+            or k_scale.dtype != torch.float32 \
+            or v_scale.dtype != torch.float32:
+        raise TypeError(f"{name}: expected int8 pages and f32 scales")
+    if valid.dtype != torch.bool:
+        raise TypeError(f"{name}: valid must be bool, got {valid.dtype}")
+    ops.check_int32(name, {"block_tables": block_tables,
+                           "positions": positions})
+    P, ps, Hkv, hd = pool_k.shape
+    B, S = positions.shape
+    if tuple(k.shape) != (B, S, Hkv, hd) or v.shape != k.shape \
+            or pool_v.shape != pool_k.shape \
+            or tuple(k_scale.shape) != (P, ps, Hkv) \
+            or v_scale.shape != k_scale.shape \
+            or valid.shape != positions.shape \
+            or block_tables.dim() != 2 or block_tables.shape[0] != B:
+        raise ValueError(f"{name}: shapes do not fit: k {tuple(k.shape)}, "
+                         f"pages {tuple(pool_k.shape)}, scales "
+                         f"{tuple(k_scale.shape)}, positions {(B, S)}, "
+                         f"block tables {tuple(block_tables.shape)}")
+    k, v = k.contiguous(), v.contiguous()
+    positions, valid = positions.contiguous(), valid.contiguous()
+    block_tables = block_tables.contiguous()
+    # the pages are written in place, so they must be the caller's storage
+    ops.check_cuda(name, {"k": k, "v": v, "pool_k": pool_k, "pool_v": pool_v,
+                          "k_scale": k_scale, "v_scale": v_scale,
+                          "block_tables": block_tables,
+                          "positions": positions, "valid": valid}, k.device)
+    ops.launch("pack_kv_paged", k.data_ptr(), v.data_ptr(),
+               block_tables.data_ptr(), positions.data_ptr(),
+               valid.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+               k_scale.data_ptr(), v_scale.data_ptr(), B * S, S, Hkv, hd,
+               block_tables.shape[1], ps, P, ops.DTYPE_CODE[k.dtype],
+               device=k.device)
+    pack_kv.launches += 1
 
 
 def unpack_kv(q, s, dtype=torch.float32):

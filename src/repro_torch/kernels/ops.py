@@ -47,11 +47,15 @@ _ENTRIES = {
     # q, k_cache, v_cache, k_pos, q_pos, scratch, out, B, Hq, Hkv, hd, L,
     # n_split, split_tokens, scale, dtype, device, stream
     "flash_decode": ("flash_decode", [_P] * 7 + [_I] * 7 + [_F, _I, _I, _P]),
-    # expert_idx, source_ids, b_out, a_out, T, K, E, S, device, stream
+    # expert_idx, source_ids, b_out, a_out, T, K, E, S, single_block_slots,
+    # device, stream
     "source_expert_count": ("source_expert_count",
-                            [_P] * 4 + [_I] * 5 + [_P]),
+                            [_P] * 4 + [_I] * 6 + [_P]),
     # x, q_out, s_out, rows, hd, dtype, device, stream
     "pack_kv": ("kv_pack", [_P] * 3 + [_L] + [_I] * 3 + [_P]),
+    # k, v, block_tables, positions, valid, pool_k, pool_v, k_scale,
+    # v_scale, tokens, S, Hkv, hd, NB, ps, P, dtype, device, stream
+    "pack_kv_paged": ("kv_pack", [_P] * 9 + [_L] + [_I] * 8 + [_P]),
     # q, s, out, rows, hd, dtype, device, stream
     "unpack_kv": ("kv_pack", [_P] * 3 + [_L] + [_I] * 3 + [_P]),
 }

@@ -4,16 +4,29 @@
   A[s, e] tokens from DP source s to expert e  (source-aware matrix)
 
 Ids outside ``[0, E)`` and sources outside ``[0, S)`` count nowhere; B
-counts every valid expert id whatever its source. ``source_expert_count``
-launches ``csrc/source_expert_count.cu`` (shared-memory histogram flushed
-with global atomics, the paper's formulation) on a CUDA tensor and runs
-``source_expert_count_plain`` on a CPU tensor.
+counts every valid expert id whatever its source, and the counts do not
+depend on the order of the slots. ``source_expert_count`` launches
+``csrc/source_expert_count.cu`` on a CUDA tensor and runs
+``source_expert_count_plain`` on a CPU tensor. Up to
+``SINGLE_BLOCK_SLOTS`` slots (every serving step) the kernel is one block
+that counts in shared memory and stores every bin: one launch and no
+memset. Above it, B and A are zeroed and a grid of blocks flushes its
+shared-memory counts with global atomics (the paper's formulation).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ops
+
+# The most slots (T * K) counted by one block: on an H100 the block's
+# device time meets the grid's (two memsets and the kernel, about 0.004 ms)
+# at 8192 slots and passes it by 16384, for random and skewed routing
+# alike; host time per call does not tell the two paths apart
+# (experiments/bench_torch/stats_paths.py; PERF.md). Every call of
+# the int8 cluster serve is under it; a padded prefill group of 4 lanes x
+# 512 tokens x top-8 (16384 slots) takes the grid.
+SINGLE_BLOCK_SLOTS = 8192
 
 
 def source_expert_count_plain(expert_idx, source_ids, *, n_experts: int,
@@ -31,9 +44,11 @@ def source_expert_count_plain(expert_idx, source_ids, *, n_experts: int,
 
 
 def source_expert_count(expert_idx, source_ids, *, n_experts: int,
-                        n_sources: int):
+                        n_sources: int,
+                        single_block_slots: int = SINGLE_BLOCK_SLOTS):
     """expert_idx (T, K) int32, source_ids (T,) int32 -> (B (E,), A (S, E))
-    int32."""
+    int32. ``single_block_slots``: the most slots counted by one block
+    (a negative limit always takes the grid)."""
     if expert_idx.device.type == "cpu":
         return source_expert_count_plain(expert_idx, source_ids,
                                          n_experts=n_experts,
@@ -57,7 +72,7 @@ def source_expert_count(expert_idx, source_ids, *, n_experts: int,
     a = torch.empty((n_sources, n_experts), dtype=torch.int32, device=dev)
     ops.launch("source_expert_count", expert_idx.data_ptr(),
                source_ids.data_ptr(), b.data_ptr(), a.data_ptr(), T, K,
-               n_experts, n_sources, device=dev)
+               n_experts, n_sources, single_block_slots, device=dev)
     source_expert_count.launches += 1
     return b, a
 

@@ -10,7 +10,7 @@
 * The layer emits the paper's two statistics along the dispatch path:
   aggregate expert load ``B[e]`` and the source-DP-to-expert matrix
   ``A[s, e]`` (logical expert ids), the latter from the
-  ``source_expert_count`` kernel on the sorted ids.
+  ``source_expert_count`` kernel on the router's ids.
 """
 from __future__ import annotations
 
@@ -102,18 +102,15 @@ def _ragged_moe_ffn(params, x, gates, logical_idx, placement, E, K, src2d,
             counts.index_add_(0, logical_idx.reshape(T * K).long(), w)
             stats["expert_counts"] = counts.to(torch.int32)
         if src2d is not None and n_sources > 0:
-            # the stats kernel on the sorted ids; a masked token's source
-            # is -1, which counts nowhere
-            order = disp.sort_idx.long()
-            lg = logical_idx.reshape(T * K)[order].to(torch.int32)
-            tok = torch.div(order, K, rounding_mode="floor")
-            ss = src2d.reshape(T)[tok].to(torch.int32)
-            if token_mask is not None:
-                ss = torch.where(token_mask.reshape(T)[tok], ss,
-                                 torch.full_like(ss, -1))
-            _, a = source_expert_count(lg[:, None].contiguous(),
-                                       ss.contiguous(), n_experts=E,
-                                       n_sources=n_sources)
+            # the stats kernel on the router's ids as they come (the counts
+            # do not depend on order); a masked token's source is -1, which
+            # counts nowhere
+            ss = src2d if token_mask is None else torch.where(
+                token_mask.reshape(src2d.shape), src2d, -1)
+            _, a = source_expert_count(
+                logical_idx.reshape(T, K).to(torch.int32).contiguous(),
+                ss.reshape(T).to(torch.int32).contiguous(), n_experts=E,
+                n_sources=n_sources)
             stats["source_expert"] = a
 
     args = (disp.tile_expert, disp.group_sizes, disp.padded_offsets, nb)

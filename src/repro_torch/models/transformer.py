@@ -31,7 +31,8 @@ import torch
 
 from repro_torch.bridge import tree_leaves, tree_map
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.kv_pack import pack_kv, unpack_kv
+from repro_torch.kernels.kv_pack import (pack_kv_into_pages, page_slots,
+                                         unpack_kv)
 from repro_torch.kernels.paged_decode import paged_decode
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import (decode_attention,
@@ -282,10 +283,10 @@ def _paged_attention(cfg, q, k, v, positions, cache, mode, paged):
     "ctx_lens" (B,) live tokens incl. this chunk, "decode_mask" (B,) or
     None}. Invalid rows write to garbage page 0 and attend to nothing.
 
-    int8 pools (``"k_scale" in cache``) quantize each written row through
-    ``pack_kv`` and scatter the per-(token, head) scales alongside; reads
-    dequantize on the fly (in the kernel for decode, through ``unpack_kv``
-    after the gather for chunked prefill).
+    int8 pools (``"k_scale" in cache``) quantize each written row and store
+    its codes and per-(token, head) scale through ``pack_kv_into_pages``,
+    one launch on the card; reads dequantize on the fly (in the kernel for
+    decode, through ``unpack_kv`` after the gather for chunked prefill).
     """
     B, S = positions.shape
     pk, pv = cache["k"], cache["v"]
@@ -294,25 +295,16 @@ def _paged_attention(cfg, q, k, v, positions, cache, mode, paged):
     NB = bt.shape[1]
     valid = paged["valid"]                                      # (B, S)
     ctx = paged["ctx_lens"].to(torch.int32).contiguous()        # (B,)
-    bidx = torch.arange(B, device=q.device)[:, None]
-    blk = torch.clamp(torch.div(positions, ps, rounding_mode="floor"),
-                      0, NB - 1).long()
-    zero = torch.zeros((), dtype=torch.long, device=q.device)
-    page = torch.where(valid, bt.long()[bidx, blk], zero).reshape(-1)
-    off = torch.where(valid, (positions % ps).long(), zero).reshape(-1)
     Hkv, hd = pk.shape[2], pk.shape[3]
     quant = "k_scale" in cache
     cks = cvs = None
     if quant:
-        kw, ksc = pack_kv(k)
-        vw, vsc = pack_kv(v)
         cks, cvs = cache["k_scale"], cache["v_scale"]
-        cks[page, off] = ksc.reshape(B * S, Hkv)
-        cvs[page, off] = vsc.reshape(B * S, Hkv)
+        pack_kv_into_pages(k, v, pk, pv, cks, cvs, bt, positions, valid)
     else:
-        kw, vw = k, v
-    pk[page, off] = kw.reshape(B * S, Hkv, hd).to(pk.dtype)
-    pv[page, off] = vw.reshape(B * S, Hkv, hd).to(pv.dtype)
+        page, off = page_slots(bt, positions, valid, ps)
+        pk[page, off] = k.reshape(B * S, Hkv, hd).to(pk.dtype)
+        pv[page, off] = v.reshape(B * S, Hkv, hd).to(pv.dtype)
 
     if mode == "paged_decode":                         # S == 1, kernel path
         out = paged_decode(q[:, 0].contiguous(), pk, pv, bt, ctx,

@@ -126,6 +126,64 @@ def test_pack_kv_kernel(cuda, dtype, shape):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hd", [16, 64, 128])
+@pytest.mark.parametrize("B,S,Hkv", [(1, 1, 1), (8, 1, 4), (2, 4, 3),
+                                     (1, 512, 8), (4, 512, 2)])
+def test_pack_kv_into_pages_kernel(cuda, dtype, hd, B, S, Hkv):
+    """One launch writes K and V of a (B, S) chunk into int8 pages,
+    bit-identical to the plain twin on every page but page 0 (invalid rows
+    race there). Lanes start mid-page, so chunks cross pages; the last lane
+    runs past its table into the clamped last block (of the rows that land
+    on one slot, the last stays valid); a third of the first lane's rows
+    are invalid."""
+    from repro_torch.kernels.kv_pack import (pack_kv, pack_kv_into_pages,
+                                             pack_kv_into_pages_plain,
+                                             page_slots)
+    g = torch.Generator(device=cuda).manual_seed(hd + Hkv)
+    ps = 16
+    NB = -(-(S + ps) // ps)
+    P = B * NB + 1
+    bt = (torch.randperm(P - 1, generator=g, device=cuda)[:B * NB] + 1) \
+        .reshape(B, NB).to(torch.int32)
+    starts = torch.arange(B, device=cuda) * 5 % ps
+    starts[-1] = NB * ps - S // 2                     # past the table
+    positions = (starts[:, None] + torch.arange(S, device=cuda)) \
+        .to(torch.int32)
+    valid = torch.ones(B, S, dtype=torch.bool, device=cuda)
+    if B > 1:
+        valid[0, ::3] = False                         # idle rows
+    page, off = page_slots(bt, positions, valid, ps)
+    keep, seen = valid.reshape(-1).tolist(), set()
+    for i in reversed(range(B * S)):                  # one writer a slot
+        slot = (int(page[i]), int(off[i]))
+        if keep[i]:
+            keep[i] = slot not in seen
+            seen.add(slot)
+    valid = torch.tensor(keep, device=cuda).reshape(B, S)
+    k, v = (torch.randn(B, S, Hkv, hd, generator=g, device=cuda).mul(
+        torch.rand(B, S, Hkv, 1, generator=g, device=cuda) * 8).to(dtype)
+        for _ in range(2))
+    k[-1, 0, 0] = 0.0                                 # a zero row
+    k[-1, -1, -1, :4] = torch.tensor([127.0, 2.5, 3.5, -0.5])   # exact ties
+    k[-1, -1, -1, 4:] = 0.0
+    pools = [torch.randint(-127, 128, (P, ps, Hkv, hd), generator=g,
+                           device=cuda, dtype=torch.int8) for _ in range(2)]
+    scales = [torch.rand(P, ps, Hkv, generator=g, device=cuda)
+              for _ in range(2)]
+    mine = [t.clone() for t in pools + scales]
+    plain = [t.clone() for t in pools + scales]
+    before = pack_kv.launches
+    pack_kv_into_pages(k, v, *mine, bt, positions, valid)
+    assert pack_kv.launches == before + 1
+    pack_kv_into_pages_plain(k, v, *plain, bt, positions, valid)
+    torch.cuda.synchronize()
+    for a, b in zip(mine, plain):
+        assert torch.equal(a[1:], b[1:])
+    tie = mine[0][bt[-1, -1].long(), int(positions[-1, -1]) % ps, -1, :4]
+    assert tie.tolist() == [127, 2, 4, 0]             # clamped to block NB-1
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(8, 1024, 4, 128), (3, 16), (5, 2, 48)])
 def test_unpack_kv_kernel(cuda, dtype, shape):
     from repro_torch.kernels.kv_pack import unpack_kv, unpack_kv_plain
@@ -464,20 +522,88 @@ def test_moe_gmm_ragged_batch_invariant(cuda, T, group):
     assert torch.equal(row0(T, group), row0(1, 1))
 
 
-@pytest.mark.parametrize("T,K,E,S", [(1, 1, 8, 2), (2048, 1, 128, 2),
-                                     (300, 8, 128, 4), (5000, 2, 64, 8)])
-def test_source_expert_count_kernel(cuda, T, K, E, S):
-    from repro_torch.kernels.source_expert_count import (
-        source_expert_count, source_expert_count_plain)
-    g = torch.Generator(device=cuda).manual_seed(2)
+def _stats_case(cuda, T, K, E, S, skew, seed=2):
+    g = torch.Generator(device=cuda).manual_seed(seed)
     ids = torch.randint(-1, E + 1, (T, K), generator=g, device=cuda,
                         dtype=torch.int32)             # -1 and E count nowhere
+    if skew == "one_expert":
+        ids.fill_(E // 2)
+    elif skew == "hot":                                 # 3 of 4 on expert 0
+        hot = torch.rand(T, K, generator=g, device=cuda) < 0.75
+        ids = torch.where(hot, torch.zeros_like(ids), ids)
     src = torch.randint(-1, S + 1, (T,), generator=g, device=cuda,
                         dtype=torch.int32)
+    return ids, src
+
+
+def _slots(where):
+    """(T, K) just under, at, or just over the single-block limit."""
+    from repro_torch.kernels.source_expert_count import SINGLE_BLOCK_SLOTS
+    n = SINGLE_BLOCK_SLOTS + {"under": -8, "at": 0, "over": 8}[where]
+    return n // 8, 8
+
+
+@pytest.mark.parametrize("T,K,E,S,skew", [
+    (1, 1, 8, 2, None), (8, 8, 128, 2, None), (2048, 1, 128, 2, None),
+    (300, 8, 128, 4, "hot"), (5000, 2, 64, 8, None), (64, 8, 128, 1, "hot"),
+    (2048, 1, 128, 2, "one_expert"), (0, 8, 128, 2, None),
+    ("under", None, 128, 8, "hot"), ("at", None, 128, 2, None),
+    ("over", None, 128, 8, "hot"), ("over", None, 128, 2, "one_expert")])
+def test_source_expert_count_kernel(cuda, T, K, E, S, skew):
+    from repro_torch.kernels.source_expert_count import (
+        source_expert_count, source_expert_count_plain)
+    if isinstance(T, str):
+        T, K = _slots(T)
+    ids, src = _stats_case(cuda, T, K, E, S, skew)
+    before = source_expert_count.launches
     b, a = source_expert_count(ids, src, n_experts=E, n_sources=S)
+    assert source_expert_count.launches == before + 1
     rb, ra = source_expert_count_plain(ids, src, n_experts=E, n_sources=S)
     torch.cuda.synchronize()
     assert torch.equal(b, rb) and torch.equal(a, ra)
+
+
+@pytest.mark.parametrize("limit", [1 << 30, -1])      # one block; the grid
+@pytest.mark.parametrize("T,K,S,skew", [
+    (8, 8, 2, None), (2048, 8, 2, "hot"), (4096, 8, 8, "one_expert")])
+def test_source_expert_count_forced_path(cuda, limit, T, K, S, skew):
+    """Either path, forced through ``single_block_slots``, at any size."""
+    from repro_torch.kernels.source_expert_count import (
+        source_expert_count, source_expert_count_plain)
+    ids, src = _stats_case(cuda, T, K, 128, S, skew)
+    b, a = source_expert_count(ids, src, n_experts=128, n_sources=S,
+                               single_block_slots=limit)
+    rb, ra = source_expert_count_plain(ids, src, n_experts=128, n_sources=S)
+    torch.cuda.synchronize()
+    assert torch.equal(b, rb) and torch.equal(a, ra)
+
+
+@pytest.mark.parametrize("where", ["under", "over"])
+def test_source_expert_count_launches(cuda, where):
+    """Up to the single-block limit a call is one kernel and no memset;
+    past it, the two memsets and the grid, as the profiler sees them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.source_expert_count import source_expert_count
+    T, K = (8, 8) if where == "under" else _slots("over")
+    ids, src = _stats_case(cuda, T, K, 128, 2, "hot")
+    source_expert_count(ids, src, n_experts=128, n_sources=2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        source_expert_count(ids, src, n_experts=128, n_sources=2)
+        torch.cuda.synchronize()
+    events = {e.key: e.count for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA}
+    memsets = sum(n for key, n in events.items() if "emset" in key)
+    kernels = {key: n for key, n in events.items()
+               if "source_expert_count" in key}
+    if where == "under":
+        assert memsets == 0 and len(events) == 1, events
+        assert list(kernels.values()) == [1] and \
+            "source_expert_count_block" in next(iter(kernels)), events
+    else:
+        assert memsets == 2 and list(kernels.values()) == [1], events
+        assert "source_expert_count_grid" in next(iter(kernels)), events
 
 
 def test_wrappers_raise_on_bad_input(cuda):

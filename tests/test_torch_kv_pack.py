@@ -1,7 +1,8 @@
 """Int8 KV pages in the port against the reference: the plain pack and
 unpack against ``pack_kv_xla``/``unpack_kv_xla`` and the Pallas kernels in
-interpret mode on the same numpy inputs, paged decode on int8 pages, the
-int8 pool's size, and the wrappers' CPU routing.
+interpret mode on the same numpy inputs, the fused int8 page write against
+the reference's write path, paged decode on int8 pages, the int8 pool's
+size, and the wrappers' CPU routing.
 
 Tolerances: int8 codes exact (ties round half to even); scales within 1e-6
 relative; unpacked values exact in f32 (one rounding, as the reference) and
@@ -30,7 +31,9 @@ from repro.kernels.kv_pack import (pack_kv_pallas, pack_kv_xla,
 from repro.kernels.paged_decode import paged_decode_pallas, paged_decode_xla
 from repro.models import transformer as jtfm
 from repro_torch.bridge import config_from_dict
-from repro_torch.kernels.kv_pack import (pack_kv, pack_kv_plain, unpack_kv,
+from repro_torch.kernels.kv_pack import (pack_kv, pack_kv_into_pages,
+                                         pack_kv_into_pages_plain,
+                                         pack_kv_plain, unpack_kv,
                                          unpack_kv_plain)
 from repro_torch.kernels.paged_decode import paged_decode, paged_decode_plain
 from repro_torch.models import transformer as ttfm
@@ -157,3 +160,90 @@ def test_int8_pool_bytes_ratio():
         jtfm.init_paged_cache(jcfg, 4, 8))
     assert nb_i8 == jtfm.paged_cache_page_nbytes(
         jtfm.init_paged_cache(jcfg, 4, 8, kv_dtype="int8"))
+
+
+# (B, S, NB, ps, starts, lens): rows b write positions starts[b] ..
+# starts[b] + S - 1, the first lens[b] of them valid
+WRITES = {
+    "one_token": (1, 1, 2, 8, [5], [1]),
+    "decode_some_lanes_idle": (8, 1, 3, 8, [0, 3, 7, 8, 15, 16, 23, 9],
+                               [1, 0, 1, 1, 0, 1, 1, 0]),
+    "chunk_crosses_pages": (2, 16, 4, 8, [5, 13], [16, 11]),
+    "past_the_table": (2, 5, 2, 8, [14, 0], [5, 3]),   # 16..18 clamp to NB-1
+    "prefill_64_rows": (4, 16, 3, 16, [0, 16, 20, 31], [16, 9, 0, 16]),
+}
+
+
+def _write_case(case, hd, dtype, seed):
+    B, S, NB, ps, starts, lens = WRITES[case]
+    Hkv = 2
+    rng = np.random.default_rng(seed)
+    P = B * NB + 1
+    bt = (1 + rng.permutation(P - 1)[:B * NB]).reshape(B, NB) \
+        .astype(np.int32)
+    positions = (np.asarray(starts)[:, None] + np.arange(S)[None]) \
+        .astype(np.int32)
+    valid = np.arange(S)[None] < np.asarray(lens)[:, None]
+    k = _inputs((B, S, Hkv, hd), dtype, seed=seed + 1)
+    v = _inputs((B, S, Hkv, hd), dtype, seed=seed + 2)
+    pages = {n: rng.integers(-127, 128, (P, ps, Hkv, hd)).astype(np.int8)
+             for n in ("k", "v")}
+    scales = {n: rng.random((P, ps, Hkv)).astype(np.float32)
+              for n in ("k", "v")}
+    return bt, positions, valid, k, v, pages, scales
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+@pytest.mark.parametrize("dtype", [np.float32, ml_dtypes.bfloat16])
+@pytest.mark.parametrize("case", sorted(WRITES))
+def test_pack_kv_into_pages_matches_reference(case, dtype, backend):
+    """The fused int8 write's plain twin against the reference's write path
+    (``transformer._paged_attention``: the page slots, ``pack_kv`` and
+    ``.at[page, off].set``) on every page but page 0, where invalid rows
+    race."""
+    ps = WRITES[case][3]
+    bt, positions, valid, k, v, pages, scales = _write_case(case, 32, dtype,
+                                                            seed=len(case))
+    B, S = positions.shape
+    NB = bt.shape[1]
+    Hkv, hd = k.shape[2], k.shape[3]
+    # the reference, as transformer._paged_attention writes int8 pages
+    jbt = jnp.asarray(bt)
+    blk = jnp.clip(jnp.asarray(positions) // ps, 0, NB - 1)
+    page = jnp.where(valid, jbt[jnp.arange(B)[:, None], blk], 0).reshape(-1)
+    off = jnp.where(valid, jnp.asarray(positions) % ps, 0).reshape(-1)
+    ref = {}
+    for n, x in (("k", k), ("v", v)):
+        q, s = (pack_kv_xla(jnp.asarray(x)) if backend == "xla" else
+                pack_kv_pallas(jnp.asarray(x), interpret=True))
+        ref[n] = (np.asarray(jnp.asarray(pages[n]).at[page, off].set(
+                      q.reshape(B * S, Hkv, hd))),
+                  np.asarray(jnp.asarray(scales[n]).at[page, off].set(
+                      s.reshape(B * S, Hkv))))
+    got = {n: (_t(pages[n]), _t(scales[n])) for n in ("k", "v")}
+    args = (_t(bt), _t(positions), torch.from_numpy(valid))
+    pack_kv_into_pages_plain(_t(k), _t(v), got["k"][0], got["v"][0],
+                             got["k"][1], got["v"][1], *args)
+    wrapped = {n: (_t(pages[n]), _t(scales[n])) for n in ("k", "v")}
+    before = pack_kv.launches
+    pack_kv_into_pages(_t(k), _t(v), wrapped["k"][0], wrapped["v"][0],
+                       wrapped["k"][1], wrapped["v"][1], *args)
+    assert pack_kv.launches == before                # CPU: the plain twin
+    written = np.zeros(pages["k"].shape[:3], bool)
+    written[np.asarray(page), np.asarray(off)] = True
+    written[0] = False
+    assert written.sum() == int(valid.sum()) * Hkv   # no two rows collide
+    for n in ("k", "v"):
+        tq, ts = (t.numpy() for t in got[n])
+        rq, rs = ref[n]
+        assert torch.equal(wrapped[n][0][1:], got[n][0][1:])
+        assert torch.equal(wrapped[n][1][1:], got[n][1][1:])
+        np.testing.assert_array_equal(tq[1:][~written[1:]],
+                                      pages[n][1:][~written[1:]])
+        np.testing.assert_allclose(ts[1:], rs[1:], rtol=1e-6, atol=0)
+        same = ts[1:] == rs[1:]
+        np.testing.assert_array_equal(tq[1:][same], rq[1:][same])
+        assert (np.abs(tq[1:].astype(int) - rq[1:]) <= 1).all()
+        if backend == "xla":                          # one IEEE division
+            np.testing.assert_array_equal(ts[1:], rs[1:])
+            np.testing.assert_array_equal(tq[1:], rq[1:])

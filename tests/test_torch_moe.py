@@ -146,3 +146,43 @@ def test_migrate_expert_weights_is_exact(tiny_model):
     for k in ("w_gate", "w_up", "w_down", "router"):
         np.testing.assert_array_equal(_np(mt[k]), np.asarray(mj[k],
                                                              np.float32))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("skew", ["hot_expert", "one_expert"])
+def test_source_stats_on_unsorted_ids_match_reference(tiny_model, skew,
+                                                      masked):
+    """The port counts A[s, e] on the router's ids as they come; the
+    reference counts them sorted by physical expert. Under skewed routing
+    and a token mask the two must be integer-identical."""
+    cfg, params = tiny_model
+    moe_p = jax.tree.map(lambda a: a[0], params["blocks"]["pos0"]["moe"])
+    E, K = cfg.moe.n_experts, cfg.moe.top_k
+    B, S = 4, 6
+    T = B * S
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(B, S, cfg.d_model)).astype(np.float32)
+    if skew == "hot_expert":       # 3 of 4 slots on expert 1, rest random
+        ids = np.where(rng.random((B, S, K)) < 0.75, 1,
+                       rng.integers(0, E, (B, S, K)))
+    else:                          # every slot on one expert
+        ids = np.full((B, S, K), E - 1)
+    ids = ids.astype(np.int32)
+    gates = rng.random((B, S, K)).astype(np.float32)
+    placement = rng.permutation(E).astype(np.int32)
+    src2d = np.repeat(np.array([0, 1, 1, 0], np.int32)[:, None], S, 1)
+    mask = rng.random((B, S)) < 0.6 if masked else None
+    _, sj = jmoe._ragged_moe_ffn(
+        moe_p, jnp.asarray(x), jnp.asarray(gates), jnp.asarray(ids),
+        jnp.asarray(placement), E, K, None, jnp.asarray(src2d), 2, True,
+        token_mask=None if mask is None else jnp.asarray(mask))
+    _, st = tmoe._ragged_moe_ffn(
+        params_from_numpy(moe_p, device="cpu"), torch.from_numpy(x),
+        torch.from_numpy(gates), torch.from_numpy(ids),
+        torch.from_numpy(placement), E, K, torch.from_numpy(src2d), 2, True,
+        token_mask=None if mask is None else torch.from_numpy(mask))
+    for k in ("expert_counts", "source_expert"):
+        np.testing.assert_array_equal(st[k].numpy(), np.asarray(sj[k]),
+                                      err_msg=k)
+    n = T if mask is None else int(mask.sum())
+    assert int(st["source_expert"].sum()) == n * K
