@@ -26,7 +26,9 @@
    through ``serve_real_cluster`` on int8 KV pages with experts migrating,
    without and with a crash of engine 1, and through
    ``serve_real_cluster`` over two dense-cache ``RealModelEngine``s in each
-   MoE dispatch mode (ragged, capacity-padded);
+   MoE dispatch mode (ragged, capacity-padded), and through step 8's Queue C
+   serve (same streams, (B, A) windows, prefix hits, copies, preemptions,
+   swaps, recoveries and migrations);
 4. serves 8 requests on two ``PagedRealEngine``s that share one runner, at
    the full width of Qwen3-30B-A3B (depth cut to ``--layers``), with random
    weights from ``--seed``, and checks what comes out: every request
@@ -47,13 +49,29 @@
    dispatch at the same width (8 slots of 1024 tokens each), experts
    migrating, and checks the same, with ``flash_decode`` and ``moe_gmm``
    launched;
-8. prints a ``kernels`` JSON line (all seven kernels), then as its last
+8. the scenario phase, at the same width on bf16 pages with prefix sharing
+   and mixed steps: serves the real slices of the ``agentic_sessions`` and
+   ``chat_oneshot`` scenarios through ``serve_real_cluster`` (the session
+   slice profiled; the invariant pack green, the sessions out-hitting the
+   one-shot prompts);
+   holds the sim<->real gate (the same session slice on the card and in
+   ``simulate``: with the MoE-pressure feedback on, the same finishes,
+   prefix hits and hit rate; with it off, affinity decisions as well);
+   serves the session slice once more with every path of ROADMAP Queue C
+   on (a tight pool that preempts by swapping to a host tier, predictive
+   placement with staged prefetch, a crash and recovery of engine 1; step 3
+   holds its float32 twin card against CPU); runs ``python -m
+   repro_torch.launch.serve --real --paged`` and ``--real`` on the card, and
+   the paged example's ``--shared-prefix`` and ``--chaos`` modes on the
+   float32 twin, whose bit-identity asserts must hold;
+9. prints a ``kernels`` JSON line (all seven kernels), then as its last
    line ``{"ok": true, "device": {...}}``.
 
 The kernel launch counters are set to 0 just before each serve of steps 4,
-6 and 7 and read just after; each serve fails if a kernel of its path was
-not launched, or if a bf16 launch of an expert GEMM or of a decode kernel
-at full width took the CUDA cores instead of the tensor cores.
+6, 7 and of each scenario slice of step 8, and read just after; each serve
+fails if a kernel of its path was not launched, or if a bf16 launch of an
+expert GEMM or of a decode kernel at full width took the CUDA cores instead
+of the tensor cores.
 
 Any failure raises, and the script exits non-zero. It never runs on the
 CPU: without a CUDA device it exits with an error before doing anything.
@@ -934,6 +952,7 @@ def reference_phase():
             f"pages)")
     cluster_reference(cfg, params, params_gpu)
     dense_cluster_reference(cfg, params, params_gpu)
+    queue_c_reference(cfg, params, params_gpu)
 
 
 PROFILE_GROUPS = (("expert GEMM", ("gmm_",)),              # both, both routes
@@ -945,12 +964,13 @@ PROFILE_GROUPS = (("expert GEMM", ("gmm_",)),              # both, both routes
 def profiled(label, run):
     """``run()`` under torch.profiler: the device's busy share of the wall
     time, and the kernels that take the device time. ``run`` returns a
-    phrase saying what it served. Returns the device events, as (self
-    device us, count, name) rows, and the wall seconds."""
+    phrase saying what it served. The device alone is traced: tracing the
+    host's operations too doubled a serve's wall time and took minutes to
+    aggregate. Returns the device events, as (self device us, count, name)
+    rows, and the wall seconds."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         what = run()
         torch.cuda.synchronize()
@@ -1313,6 +1333,348 @@ def dense_cluster_phase(args, cfg, params, counters):
     return launches, tc
 
 
+# ---------------------------------------------------------------- scenarios
+def scenario_ecfg(device, **kw):
+    """Full-width scenario engines: bf16 pages of 16 tokens, 64 a request
+    (the slices' prompts stay under 1008 tokens), prefix sharing and mixed
+    steps on."""
+    from repro_torch.serving import PagedEngineConfig
+    base = dict(page_size=16, n_pages=1024, max_blocks_per_req=64,
+                max_batch=8, token_budget=512,
+                chunk_buckets=(64, 128, 256, 512), prefix_sharing=True,
+                mixed_steps=True, device=device)
+    return PagedEngineConfig(**dict(base, **kw))
+
+
+def max_prompt(ecfg) -> int:
+    return ecfg.max_blocks_per_req * ecfg.page_size - 16
+
+
+def record_dispatch_and_windows(engines, first, windows):
+    """Wrap each engine to record every request's first dispatch time into
+    ``first`` and, if ``windows`` is a list, each (B, A) window the engine
+    hands the coordinator into it."""
+    for e in engines:
+        def enqueue(r, now, _enqueue=e.enqueue):
+            first.setdefault(r.req_id, now)
+            _enqueue(r, now)
+        e.enqueue = enqueue
+        if windows is not None:
+            def window_stats(_window_stats=e.window_stats):
+                stats = _window_stats()
+                if stats[0] is not None:
+                    windows.append(stats)
+                return stats
+            e.window_stats = window_stats
+
+
+def serve_slice(cfg, params, ecfg, reqs, *, pool=None, tier=False,
+                windows=None, **cluster_kw):
+    """``reqs`` through ``serve_real_cluster`` on two engines sharing one
+    runner, with streaming metrics, and the scenario invariant pack held on
+    the run. ``pool``: pages per engine over the runner's arrays (a tight
+    pool); ``tier``: the engines share a ``HostKVTier`` and preempt by
+    swapping to it; ``windows``: a list that collects the engines' (B, A)
+    windows. Returns (SimResult, engines, the pack's aggregates,
+    metrics, wall s, requests dispatched again, each recovered off a
+    crashed engine)."""
+    import dataclasses
+    from repro_torch.core import StreamingMetrics
+    from repro_torch.serving import (HostKVTier, PagedModelRunner,
+                                     PagedRealEngine, RealClusterConfig,
+                                     serve_real_cluster)
+    from repro_torch.workloads import check_scenario_invariants
+    runner = PagedModelRunner(cfg, params, ecfg, n_sources=2)
+    eng_cfg = ecfg
+    if pool is not None:
+        eng_cfg = dataclasses.replace(eng_cfg, n_pages=pool)
+    host = None
+    if tier:
+        host = HostKVTier()
+        eng_cfg = dataclasses.replace(eng_cfg, swap_policy="swap")
+    engines = [PagedRealEngine(i, cfg, params, eng_cfg, runner=runner,
+                               n_sources=2, tier=host) for i in range(2)]
+    first = {}
+    record_dispatch_and_windows(engines, first, windows)
+    metrics = StreamingMetrics(window_s=10.0, seed=0)
+    t0 = time.perf_counter()
+    res = serve_real_cluster(reqs, engines, metrics=metrics,
+                             cluster_cfg=RealClusterConfig(**cluster_kw))
+    if ecfg.device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    # a request recovered off a crashed engine is dispatched again, which
+    # overwrites its dispatch_time, but keeps the first_token_time its
+    # client saw before the crash (both packages do this); the pack orders
+    # arrival <= dispatch <= first token, which holds for the first dispatch.
+    # Only recovery may dispatch a request twice: none without a fault plan
+    redispatched = [r.req_id for r in reqs
+                    if r.dispatch_time != first[r.req_id]]
+    allowed = (res.signals["recovered_requests"] if "fault_plan" in cluster_kw
+               else 0)
+    if len(redispatched) > allowed:
+        raise AssertionError(f"{len(redispatched)} requests dispatched again "
+                             f"after their first dispatch, {allowed} "
+                             f"recovered: {redispatched}")
+    for r in reqs:
+        r.dispatch_time = first[r.req_id]
+    inv = check_scenario_invariants(reqs, res, engines=engines,
+                                    metrics=metrics)
+    return res, engines, inv, metrics, wall, redispatched
+
+
+def slice_line(label, reqs, res, inv, metrics, wall):
+    lat = metrics.snapshot()["metrics"]
+    q = lambda k, p: lat.get(k, {}).get(p, float("nan"))  # noqa: E731
+    log(f"{label}: {len(reqs)} requests, {res.signals['rounds']} rounds, "
+        f"{wall:.2f} s wall, TTFT p50 {q('ttft', 'p50'):.3f} p99 "
+        f"{q('ttft', 'p99'):.3f} s, TPOT p50 {q('tpot', 'p50'):.4f} p99 "
+        f"{q('tpot', 'p99'):.4f} s (virtual time), hit rate "
+        f"{inv['hit_rate']:.4f}, {inv['prefix_hit_tokens']} prefix-hit "
+        f"tokens, decisions {res.signals['decisions']}, preemptions "
+        f"{res.signals['preemptions']}, migrations "
+        f"{res.signals['migrations']}")
+
+
+def queue_c_serve(cfg, params, ecfg, pool, n, seed, label, windows=None):
+    """The session slice with every Queue C path on: a tight pool of
+    ``pool`` pages an engine and short prefill chunks, so that prefill growth
+    preempts; preemption by swapping to a shared host tier; predictive
+    placement with staged prefetch, uncalibrated so that experts migrate;
+    engine 1 crashing at round 20 and rejoining at round 40. Every request
+    must finish, none lost or errored, with preemptions, swaps, recovered
+    requests and staged-prefetch adoptions all above zero. Returns
+    (requests, SimResult)."""
+    from repro_torch.core import PlacementConfig
+    from repro_torch.ft import FaultEvent, FaultPlan, HealthConfig
+    from repro_torch.workloads import SCENARIOS, build_real_slice
+    reqs = build_real_slice(SCENARIOS["agentic_sessions"], n, seed=seed,
+                            vocab=cfg.vocab_size, max_prompt=max_prompt(ecfg),
+                            rps=48.0)
+    res, engines, inv, metrics, wall, redisp = serve_slice(
+        cfg, params, ecfg, reqs, pool=pool, tier=True, windows=windows,
+        window_tokens=ecfg.page_size * 25, prefetch=True, predictive=True,
+        placement_cfg=PlacementConfig.uncalibrated(),
+        health_cfg=HealthConfig(trace_timeout_s=0.3),
+        fault_plan=FaultPlan(events=(FaultEvent("crash", 1, 20),
+                                     FaultEvent("recover", 1, 40))))
+    sig = res.signals
+    lost = [r.req_id for r in reqs if r.error or r.finish_time < 0]
+    counts = {k: sig[k] for k in ("preemptions", "swapped_out_reqs",
+                                  "swapped_in_reqs", "recovered_requests",
+                                  "prefetch_pointer_swaps", "migrations")}
+    events = [(e["engine"], e["event"]) for e in sig["health_events"]]
+    if lost or sig["unfinished"] or sig["errors"] or \
+            min(counts.values()) <= 0 or (1, "rejoin") not in events:
+        raise AssertionError(f"{label}: expected every request finished and "
+                             f"every Queue C path taken, got lost {lost}, "
+                             f"unfinished {sig['unfinished']}, errors "
+                             f"{sig['errors']}, {counts}, health events "
+                             f"{events}")
+    slice_line(label, reqs, res, inv, metrics, wall)
+    # the cluster's swapped_tokens is what the tier still holds at the end
+    # (0 once every swapped request came back): the swaps are counted by
+    # the allocators' swapped_out_reqs and swapped_in_reqs
+    log(f"{label}: {counts}, {sig['swap_out_bytes']} bytes to the host tier "
+        f"and {sig['swap_in_bytes']} back, {sig['cow_copies']} copy-on-write "
+        f"pages, health events {events}, "
+        f"{len(redisp)} requests dispatched again after the crash "
+        f"(the pack held on their first dispatch), invariant pack green")
+    return reqs, res
+
+
+def queue_c_reference(cfg, params, params_gpu):
+    """Queue C's serve on the float32 twin, card against CPU: the same
+    token streams, (B, A) windows, prefix hits, copy-on-write copies,
+    preemptions, swaps, recovered requests and migrations."""
+    keys = ("prefix_hit_tokens", "cow_copies", "preemptions",
+            "swapped_out_reqs", "swapped_in_reqs", "recovered_requests",
+            "migrations", "expert_moves", "decisions")
+    out = {}
+    for dev, p in (("cpu", params), ("cuda", params_gpu)):
+        ecfg = scenario_ecfg(dev, page_size=8, n_pages=48,
+                             max_blocks_per_req=8, max_batch=4,
+                             token_budget=8, chunk_buckets=(8,))
+        windows = []
+        reqs, res = queue_c_serve(cfg, p, ecfg, 8, 24, 0,
+                                  f"float32 twin Queue C serve ({dev})",
+                                  windows)
+        out[dev] = ([r.full_output_tokens for r in reqs],
+                    {k: res.signals[k] for k in keys}, windows)
+    (toks_c, sig_c, win_c), (toks_g, sig_g, win_g) = out["cpu"], out["cuda"]
+    same_windows = len(win_c) == len(win_g) and all(
+        np.array_equal(a, b) for wc, wg in zip(win_c, win_g)
+        for a, b in zip(wc, wg))
+    if toks_c != toks_g or sig_c != sig_g or not same_windows:
+        diff = [k for k in keys if sig_c[k] != sig_g[k]]
+        raise AssertionError(f"float32 twin Queue C serve: card and CPU "
+                             f"disagree (tokens equal: {toks_c == toks_g}, "
+                             f"(B, A) windows equal: {same_windows}, "
+                             f"signals that differ: {diff})")
+    log(f"reference: float32 twin Queue C serve (session slice, tight pool, "
+        f"swap to host, predictive prefetch, crash and recovery, prefix "
+        f"sharing, mixed steps): card kernels and CPU plain versions give "
+        f"the same {sum(map(len, toks_c))} tokens and {len(win_c)} (B, A) "
+        f"windows, {sig_g}")
+
+
+def gate_serves(cfg, params, ecfg, seed, feedback):
+    """The reference's sim<->real gate at full width: the same session
+    slice (assistant turns not folded, arrivals 3 virtual s apart, so each
+    turn finds the previous one finished and registered) served on the
+    card and by ``simulate``, with the MoE-pressure feedback into dispatch
+    on or off on both planes. Returns, per plane, the finished requests,
+    prefix-hit tokens, hit rate and decision counts, and the card's wall s
+    and rounds."""
+    from repro_torch.core import SchedulerConfig, StreamingMetrics
+    from repro_torch.serving import EngineConfig, SystemConfig, simulate
+    from repro_torch.workloads import (SCENARIOS, build_real_slice,
+                                       check_scenario_invariants)
+
+    def mk():
+        reqs = build_real_slice(SCENARIOS["agentic_sessions"], 10, seed=seed,
+                                vocab=cfg.vocab_size,
+                                max_prompt=max_prompt(ecfg), rps=0.25,
+                                fold_assistant=False)
+        for i, r in enumerate(reqs):
+            r.arrival_time = 3.0 * (i + 1)
+        return reqs
+
+    real = mk()
+    rres, _, rinv, _, wall, _ = serve_slice(
+        cfg, params, ecfg, real, window_tokens=200,
+        scheduler_cfg=SchedulerConfig(), feedback=feedback)
+    sim = mk()
+    smetrics = StreamingMetrics(window_s=5.0, seed=0)
+    sres = simulate(sim, SystemConfig(name="diff_sim", n_engines=2,
+                                      n_moe_layers=4, n_experts=16, top_k=2,
+                                      feedback=feedback),
+                    engine_cfg=EngineConfig(
+                        kv_tokens=ecfg.n_pages * ecfg.page_size,
+                        kv_block=ecfg.page_size, prefix_sharing=True),
+                    traffic_seed=0, metrics=smetrics)
+    sinv = check_scenario_invariants(sim, sres, engines=sres.engines,
+                                     metrics=smetrics)
+    plane = lambda reqs, res, inv: {  # noqa: E731
+        "finished": sorted(r.req_id for r in reqs if r.finish_time >= 0),
+        "prefix_hit_tokens": inv["prefix_hit_tokens"],
+        "hit_rate": inv["hit_rate"],
+        "decisions": dict(res.signals["decisions"])}
+    return (plane(real, rres, rinv), plane(sim, sres, sinv), wall,
+            rres.signals["rounds"])
+
+
+def sim_real_gate(cfg, params, ecfg, seed):
+    """The gate twice. With the MoE-pressure feedback on, as the reference
+    runs it, both planes must finish every turn with the same prefix-hit
+    tokens (> 0) and hit rate; their decision counts are printed, not
+    compared: the feedback comes from the real router on the card and from
+    the synthetic routing model in ``simulate``, and at full width it moves
+    the card's choices off the affinity path. With the feedback off on both
+    planes, the reference's whole gate: the same finish sets, prefix-hit
+    tokens (> 0), hit rate and affinity decisions (> 0)."""
+    for feedback in (True, False):
+        real, sim, wall, rounds = gate_serves(cfg, params, ecfg, seed,
+                                              feedback)
+        raff = real["decisions"].get("affinity_path", 0)
+        saff = sim["decisions"].get("affinity_path", 0)
+        same = (real["finished"] == sim["finished"] == list(range(10))
+                and real["prefix_hit_tokens"] == sim["prefix_hit_tokens"] > 0
+                and abs(real["hit_rate"] - sim["hit_rate"])
+                <= 1e-6 * sim["hit_rate"])
+        if not same or not (feedback or raff == saff > 0):
+            raise AssertionError(f"sim<->real gate (feedback "
+                                 f"{'on' if feedback else 'off'}): card "
+                                 f"{real}, simulate {sim}")
+        log(f"scenario: sim<->real gate at full width, feedback "
+            f"{'on' if feedback else 'off'}: {len(real['finished'])} session "
+            f"turns in {wall:.2f} s wall ({rounds} rounds) finish the same "
+            f"set on the card and in simulate, {real['prefix_hit_tokens']} "
+            f"prefix-hit tokens, hit rate {real['hit_rate']:.4f} on both "
+            f"planes; affinity decisions card {raff}, simulate {saff} "
+            f"(card {real['decisions']}, simulate {sim['decisions']})")
+
+
+def scenario_phase(args, cfg, params, counters):
+    """The scenario slices at full width on bf16 fp pages with prefix
+    sharing and mixed steps, the sim<->real gate, the Queue C paths in one
+    serve, the serving CLI and the paged example's modes."""
+    from repro_torch.configs import get_smoke_config, reduced
+    from repro_torch.examples import serve_moe_paged
+    from repro_torch.workloads import SCENARIOS, build_real_slice
+    ecfg = scenario_ecfg("cuda")
+    hits, launches, tc = {}, {}, {}
+    for name, n in (("agentic_sessions", 32), ("chat_oneshot", 24)):
+        reqs = build_real_slice(SCENARIOS[name], n, seed=args.seed,
+                                vocab=cfg.vocab_size,
+                                max_prompt=max_prompt(ecfg), rps=4.0)
+        got = {}
+
+        def run():
+            res, _, inv, metrics, wall, _ = serve_slice(
+                cfg, params, ecfg, reqs, window_tokens=250)
+            got.update(res=res, inv=inv, metrics=metrics, wall=wall)
+            return f"{name}: {res.signals['rounds']} rounds"
+
+        label = f"scenario {name}"
+        reset_counts(counters)
+        if name == "agentic_sessions":
+            profiled(label, run)
+            label += " (profiled)"
+        else:
+            run()
+        launches[name], tc[name] = read_counts(counters)
+        for k in ("paged_decode", "moe_gmm_ragged", "source_expert_count"):
+            if launches[name][k] <= 1:
+                raise AssertionError(f"scenario {name}: kernel {k} launched "
+                                     f"{launches[name][k]} times")
+        check_routes(f"scenario {name}", launches[name], tc[name],
+                     ("moe_gmm_ragged", "paged_decode"))
+        slice_line(label, reqs, got["res"], got["inv"], got["metrics"],
+                   got["wall"])
+        hits[name] = got["inv"]["hit_rate"]
+    if not hits["agentic_sessions"] > hits["chat_oneshot"]:
+        raise AssertionError(f"scenario: the session slice must out-hit the "
+                             f"one-shot slice, got {hits}")
+    log(f"scenario: launches of the session slice "
+        f"{launches['agentic_sessions']}, on the tensor cores "
+        f"{tc['agentic_sessions']}; hit rates {hits}")
+
+    sim_real_gate(cfg, params, ecfg, args.seed)
+
+    torch.cuda.reset_peak_memory_stats()
+    queue_c_serve(cfg, params, scenario_ecfg("cuda", n_pages=256,
+                                             token_budget=128,
+                                             chunk_buckets=(64, 128)),
+                  34, 32, args.seed, "scenario Queue C serve (bf16, full "
+                  "width)")
+    log(f"scenario Queue C serve: peak card memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"(the weights, the migrated tree, the prefetch's staged copy and "
+        f"a migration's transient copy of the expert stacks)")
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    for flags in (("--real", "--paged"), ("--real",)):
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                              *flags], env=env, cwd=HERE, capture_output=True,
+                             text=True, timeout=600)
+        served = [ln for ln in out.stdout.splitlines() if "served" in ln]
+        if out.returncode or not any("served 12/12" in ln for ln in served):
+            raise AssertionError(f"launch.serve {' '.join(flags)}: exit "
+                                 f"{out.returncode}\n{out.stdout[-2000:]}\n"
+                                 f"{out.stderr[-4000:]}")
+        log(f"cli: python -m repro_torch.launch.serve {' '.join(flags)} on "
+            f"the card: exit 0 in {time.perf_counter() - t0:.1f} s, "
+            f"{served[0]}")
+    twin = reduced(get_smoke_config("qwen3-moe-30b-a3b"), dtype="float32")
+    for mode in ("shared_prefix", "chaos"):
+        serve_moe_paged.main(**{mode: True}, device="cuda", cfg=twin)
+        log(f"example: serve_moe_paged.main({mode}=True) on the float32 twin "
+            f"on the card: its bit-identity asserts hold")
+    return launches["agentic_sessions"], tc["agentic_sessions"]
+
+
 def main() -> int:
     args = parse_args()
     if not torch.cuda.is_available():
@@ -1365,6 +1727,8 @@ def main() -> int:
     dense_launches, dense_tc = dense_cluster_phase(args, cfg, params,
                                                    counters)
     phase_done("dense cluster (with its profiled rerun)")
+    scen_launches, scen_tc = scenario_phase(args, cfg, params, counters)
+    phase_done("scenario")
     # each kernel's main-path count: the dense cluster serve for the two
     # kernels of the dense plane, the paged cluster serve for the others
     main_launches = dict(launches, flash_decode=dense_launches["flash_decode"],
@@ -1398,13 +1762,15 @@ def main() -> int:
                    "tc_launches_by_path": {
                        "serve": serve_tc.get(name, 0),
                        "cluster_serve": cluster_tc.get(name, 0),
-                       "dense_cluster_serve": dense_tc[name]}}
+                       "dense_cluster_serve": dense_tc[name],
+                       "scenario_serve": scen_tc.get(name, 0)}}
         kernels.append({
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1], "launches": main_launches[name],
             "launches_by_path": {"serve": serve_launches.get(name, 0),
                                  "cluster_serve": launches.get(name, 0),
-                                 "dense_cluster_serve": dense_launches[name]},
+                                 "dense_cluster_serve": dense_launches[name],
+                                 "scenario_serve": scen_launches.get(name, 0)},
             "max_abs_err": max(r["err"] for dt, r in rows
                                if dt.split("/")[0] in ("bfloat16", "int32")),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],

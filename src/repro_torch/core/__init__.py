@@ -6,11 +6,9 @@
 - profiler:    online B[l,e] / A[l,s,e] expert-traffic statistics (§5.1)
 - placement:   source-aware greedy expert placement (§5.2-5.3)
 - forecast:    online source→expert traffic forecasting + prefetch pricing
+- minlp:       offline placement reference + (beta, gamma) calibration (§6)
 - coordinator: the cross-level feedback loop (§3)
 - metrics:     O(1)-memory streaming latency percentiles
-
-The offline MINLP reference (``minlp``) is not copied yet (ROADMAP.md
-Queue A).
 """
 from repro_torch.core.coordinator import CoordinatorConfig, GimbalCoordinator
 from repro_torch.core.forecast import (ExpertTrafficForecaster,
@@ -19,6 +17,9 @@ from repro_torch.core.forecast import (ExpertTrafficForecaster,
 from repro_torch.core.metrics import (P2Quantile, ReservoirQuantile,
                                       StreamingMetrics, StreamingStat,
                                       WindowedSeries, merged_quantile)
+from repro_torch.core.minlp import (CalibrationResult, anneal_layer,
+                                    brute_force_layer, calibrate,
+                                    solve_reference)
 from repro_torch.core.placement import (PlacementConfig, PlacementManager,
                                         assignment_to_permutation,
                                         default_distance_matrix,
@@ -38,7 +39,8 @@ from repro_torch.core.traces import (EngineTrace, PrefixSummary,
 __all__ = [
     "CoordinatorConfig", "GimbalCoordinator",
     "ExpertTrafficForecaster", "ForecastConfig",
-    "PrefetchConfig", "PrefetchCostModel",
+    "PrefetchConfig", "PrefetchCostModel", "CalibrationResult",
+    "anneal_layer", "brute_force_layer", "calibrate", "solve_reference",
     "PlacementConfig", "PlacementManager", "assignment_to_permutation",
     "default_distance_matrix", "greedy_layer_placement", "layer_objective",
     "torus_distance_matrix", "total_objective", "ExpertProfiler",

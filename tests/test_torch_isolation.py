@@ -29,6 +29,14 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "import repro_torch.kernels.kv_pack\n"
         "import repro_torch.kernels.flash_decode, repro_torch.models.api\n"
         "import repro_torch.serving.real_engine\n"
+        "import repro_torch.serving.engine, repro_torch.serving.routing_sim\n"
+        "import repro_torch.serving.simulator, repro_torch.core.minlp\n"
+        "import repro_torch.workloads.burstgpt\n"
+        "import repro_torch.workloads.sessions\n"
+        "import repro_torch.workloads.scenarios\n"
+        "import repro_torch.launch.serve, repro_torch.launch.stress\n"
+        "import repro_torch.examples.serve_moe\n"
+        "import repro_torch.examples.serve_moe_paged\n"
         "from repro_torch.configs import get_config, get_smoke_config\n"
         "get_config('qwen3-moe-30b-a3b'), "
         "get_smoke_config('qwen3-moe-30b-a3b')\n"
