@@ -64,11 +64,30 @@
    repro_torch.launch.serve --real --paged`` and ``--real`` on the card, and
    the paged example's ``--shared-prefix`` and ``--chaos`` modes on the
    float32 twin, whose bit-identity asserts must hold;
-9. prints a ``kernels`` JSON line (all seven kernels), then as its last
+9. frees the Qwen3 weights and serves llama4-maverick at full width (d
+   5120, 40/8 heads, vocab 202048, 128 experts top-1 of 8192 and a shared
+   expert, a dense FFN of 16384), depth cut 48 -> 2 (one period, 34.79 GiB
+   of bf16 weights): first its MoE layer against an f32 computation on the
+   card, then 16 requests of 128 to 1024 prompt tokens through
+   ``serve_real_cluster`` on two engines with int8 pages and experts
+   migrating, profiled; it prints the card's memory after init and the
+   serve's peak, and each adoption's wall time, bytes moved and peak rise,
+   and fails if no placement was adopted, if an adoption's peak rise
+   passed the moved experts' bytes plus 64 MiB, if the caller's weights
+   changed, or if the profile lacks one int8 write per layer-step. The
+   kernel phase holds the five paged-path kernels at llama4's shapes too
+   (decode at G = 5, the GEMMs at 5120 <-> 8192, top-1), and the reference
+   phase llama4's float32 twin through ``serve_real_cluster`` card against
+   CPU, with uncalibrated and with predictive placement and staged
+   prefetch;
+10. prints a ``kernels`` JSON line (all seven kernels), then as its last
    line ``{"ok": true, "device": {...}}``.
 
+Adopting a placement moves the experts' weights in place; each serve
+leaves the caller's weights as they were.
+
 The kernel launch counters are set to 0 just before each serve of steps 4,
-6, 7 and of each scenario slice of step 8, and read just after; each serve
+6, 7, 9 and of each scenario slice of step 8, and read just after; each serve
 fails if a kernel of its path was not launched, or if a bf16 launch of an
 expert GEMM or of a decode kernel at full width took the CUDA cores instead
 of the tensor cores.
@@ -79,6 +98,7 @@ CPU: without a CUDA device it exits with an error before doing anything.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import re
@@ -141,11 +161,13 @@ class Timer:
         one of these; None: every device event of ``fn`` (a library call,
         whatever kernels it picks), the flush left out: here the flush is a
         bitwise_not, a kernel no timed function launches. The profiler now
-        and then drops an event, or every event of a profile: a profile is
-        taken (up to four times) until it holds each kernel at least once a
-        call less one event (launches per call: its count over the calls,
-        rounded), and, for a library call, until two such profiles agree on
-        its kernels, so that one the profiler missed entirely shows. A
+        and then drops an event, the events of one call, or every event of
+        a profile: a profile is taken (up to four times) until each kernel
+        shows its launches per call in all the calls but one (launches per
+        call: its count over the calls, rounded; a kernel a library call
+        launched twice a call once showed 18 events in 10 calls), and, for
+        a library call, until two such profiles agree on its kernels, so
+        that one the profiler missed entirely shows. A
         kernel's time per call is its mean over its events times its
         launches per call. Returns (ms, {kernel: ms})."""
         from torch.autograd import DeviceType
@@ -175,7 +197,8 @@ class Timer:
             per_call = {k: max(1, round(n / self.iters))
                         for k, n in counts.items()}
             whole = bool(counts) and all(
-                n >= per_call[k] * self.iters - 1 for k, n in counts.items())
+                n >= per_call[k] * (self.iters - 1)
+                for k, n in counts.items())
             if match:
                 if whole and len(parts) == n_kernels:
                     break
@@ -227,15 +250,17 @@ def library_times(timer, run):
             "library_device_parts": parts}
 
 
-def check_paged_decode(timer, dtype, int8_pages=False, long_ctx=False):
+def check_paged_decode(timer, dtype, int8_pages=False, long_ctx=False,
+                       Hq=32, Hkv=4):
     """The serving shape (8 requests up to 1024 tokens, lane 0 empty), or a
-    32768-token context over a pool of 16385 pages (0.54 GB in bf16)."""
+    32768-token context over a pool of 16385 pages (0.54 GB in bf16).
+    Heads: qwen3's 32/4 (G = 8), or llama4's 40/8 (G = 5)."""
     from repro_torch.kernels.decode_route import row_rel_err
     from repro_torch.kernels.kv_pack import pack_kv_plain
     from repro_torch.kernels.paged_decode import (paged_decode,
                                                   paged_decode_plain)
     g = torch.Generator(device="cuda").manual_seed(1)
-    B, Hq, Hkv, hd, ps = 8, 32, 4, 128, 16
+    B, hd, ps = 8, 128, 16
     if long_ctx:
         NB, P = 2048, 16385
         ctx = [32768, 30000, 26000, 20000, 16384, 9000, 4000, 1]
@@ -299,14 +324,18 @@ def dispatch_layout(T, K, E, D, dtype, g):
     return ragged_dispatch(x, ids, E, row_block=nb)
 
 
-def check_gmm(timer, dtype, T, D, F, which):
+def check_gmm(timer, dtype, T, D, F, which, K=8):
+    """qwen3's top-8 of 128 experts (2048 <-> 768), or llama4's top-1 of
+    128 (5120 <-> 8192: a 10 GiB bf16 weight stack). The weights are drawn
+    one expert at a time, so the draw's f32 buffer is one expert's."""
     from repro_torch.kernels.moe_gmm import (moe_gmm_ragged,
                                              moe_gmm_ragged_plain)
     g = torch.Generator(device="cuda").manual_seed(2)
-    E, K = 128, 8
+    E = 128
     disp = dispatch_layout(T, K, E, D, dtype, g)
-    w = (torch.randn(E, D, F, generator=g, device="cuda")
-         / np.sqrt(D)).to(dtype)
+    w = torch.empty(E, D, F, dtype=dtype, device="cuda")
+    for e in range(E):
+        w[e] = torch.randn(D, F, generator=g, device="cuda") / np.sqrt(D)
     args = (disp.xs, w, disp.tile_expert, disp.group_sizes,
             disp.padded_offsets)
     nb = disp.row_block
@@ -511,17 +540,18 @@ def check_pack(timer, dtype, shape, which):
             "library_ms": None}
 
 
-def check_pack_paged(timer, dtype, B, S, which):
+def check_pack_paged(timer, dtype, B, S, which, Hkv=4):
     """The whole int8 KV write of one layer in one launch: K and V of a
-    (B, S) chunk at full width (4 KV heads of 128) into a pool of int8
+    (B, S) chunk at full width (KV heads of 128) into a pool of int8
     pages of 16 tokens, against the plain twin (``pack_kv_plain`` and the
     four index-puts), bit for bit on every page but page 0, where invalid
     rows race. Decode: 8 lanes at assorted contexts, lane 3 idle; prefill:
-    one 512-token chunk starting mid-page, its last 12 rows padding."""
+    one 512-token chunk starting mid-page, its last 12 rows padding. KV
+    heads: qwen3's 4, or llama4's 8."""
     from repro_torch.kernels.kv_pack import (pack_kv_into_pages,
                                              pack_kv_into_pages_plain)
     g = torch.Generator(device="cuda").manual_seed(8)
-    Hkv, hd, ps, NB = 4, 128, 16, 64
+    hd, ps, NB = 128, 16, 64
     P = B * NB + 1
     bt = (torch.randperm(P - 1, generator=g, device="cuda") + 1) \
         .reshape(B, NB).to(torch.int32)
@@ -684,11 +714,43 @@ def kernel_phase():
             record("moe_gmm", dt,
                    check_padded_gmm(timer, dtype, E, C, D, F, which))
     # a decode step first (the kernels line's row), then a 256-token chunk,
-    # the grid above SINGLE_BLOCK_SLOTS, and the sorted-ids shape of before
-    for T, K in ((8, 8), (256, 8), (2048, 8), (2048, 1)):
+    # the grid above SINGLE_BLOCK_SLOTS, and the sorted-ids shape of before;
+    # then llama4's top-1 decode step and 512-token chunk
+    for T, K in ((8, 8), (256, 8), (2048, 8), (2048, 1), (8, 1), (512, 1)):
         record("source_expert_count", "int32",
                check_stats(timer, T, K))
+    llama4_kernel_rows(timer, record)
     return results
+
+
+def llama4_kernel_rows(timer, record):
+    """The five kernels of the paged path at llama4-maverick's serving
+    shapes: decode with 40 query heads over 8 KV heads (G = 5) on fp and
+    int8 pages (bf16 on the tensor cores, f32 on the CUDA cores), its int8
+    KV write and dequantization with 8 KV heads, and the ragged GEMMs of a
+    top-1 decode step and a 512-token prefill chunk over 128 experts of
+    5120 <-> 8192 (bf16)."""
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype).split(".")[1]
+        for int8 in (False, True):
+            r = check_paged_decode(timer, dtype, int8_pages=int8, Hq=40,
+                                   Hkv=8)
+            r["shape"] = "llama4: " + r["shape"]
+            record("paged_decode", dt + ("/int8" if int8 else ""), r)
+    dt = "bfloat16"
+    for B, S, which in ((8, 1, "llama4 decode"),
+                        (1, 512, "llama4 prefill chunk")):
+        record("pack_kv", dt + "/paged",
+               check_pack_paged(timer, torch.bfloat16, B, S, which, Hkv=8))
+    r = check_unpack(timer, torch.bfloat16, (8, 1024, 8, 128))
+    r["shape"] = "llama4 " + r["shape"]
+    record("unpack_kv", dt, r)
+    for T, which in ((8, "llama4 decode"), (512, "llama4 prefill")):
+        for D, F, proj in ((5120, 8192, "gate/up"), (8192, 5120, "down")):
+            record("moe_gmm_ragged", dt,
+                   check_gmm(timer, torch.bfloat16, T, D, F,
+                             f"{which} {proj}", K=1))
+            torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------------ serving
@@ -953,6 +1015,85 @@ def reference_phase():
     cluster_reference(cfg, params, params_gpu)
     dense_cluster_reference(cfg, params, params_gpu)
     queue_c_reference(cfg, params, params_gpu)
+    llama4_reference()
+
+
+def weight_fingerprint(params):
+    """Per expert row of every stacked expert leaf (and per leaf of the
+    rest), the sum of its bits read as int16: equal before and after a
+    serve only if every row holds the same bits in the same slot, as far
+    as a sum can tell. Leaf by leaf and row by row, so that no copy of the
+    weights is made."""
+    from repro_torch.bridge import tree_leaves
+    out = []
+    for t in tree_leaves(params):
+        bits = t.view(torch.int16) if t.element_size() == 2 else \
+            t.view(torch.int32)
+        rows = bits.reshape(-1, *bits.shape[-2:]) if t.dim() >= 3 else \
+            bits[None]
+        out.append(torch.stack([r.sum(dtype=torch.int64) for r in rows])
+                   .cpu())
+    return out
+
+
+def llama4_reference():
+    """llama4-maverick's float32 twin (smoke widths, one period: a dense
+    layer, then a MoE layer with a shared expert) through serve_real_cluster
+    on two paged engines, with uncalibrated placement and with predictive
+    placement and staged prefetch: the card and the CPU give the same
+    tokens, decisions, migrations, expert moves and staged adoptions, and
+    each serve leaves the caller's weights as they were."""
+    from repro_torch.bridge import tree_map
+    from repro_torch.configs import get_smoke_config, reduced
+    from repro_torch.core import PlacementConfig
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import PagedEngineConfig
+    cfg = reduced(get_smoke_config("llama4-maverick-400b-a17b"), n_layers=2,
+                  dtype="float32")
+    params = tfm.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                             device="cpu")
+    params_gpu = tree_map(lambda t: t.to("cuda"), params)
+    keys = ("decisions", "migrations", "expert_moves",
+            "prefetch_pointer_swaps", "per_engine", "unfinished")
+    for predictive in (False, True):
+        out = {}
+        for dev, p in (("cpu", params), ("cuda", params_gpu)):
+            ecfg = PagedEngineConfig(page_size=8, n_pages=48,
+                                     max_blocks_per_req=8, max_batch=4,
+                                     token_budget=16, chunk_buckets=(8, 16),
+                                     device=dev)
+            reqs = make_requests(cfg, 8, 6, 30, 5, seed=5, gap=0.1)
+            before = weight_fingerprint(p)
+            res, _, _ = serve_cluster(
+                cfg, p, ecfg, reqs, window_tokens=48,
+                placement_cfg=PlacementConfig.uncalibrated(),
+                predictive=predictive, prefetch=predictive)
+            if not all(torch.equal(a, b) for a, b in
+                       zip(before, weight_fingerprint(p))):
+                raise AssertionError(f"llama4 float32 twin ({dev}): the "
+                                     "serve changed the caller's weights")
+            out[dev] = ([r.full_output_tokens for r in reqs],
+                        {k: res.signals[k] for k in keys})
+        what = ("predictive placement, staged prefetch" if predictive
+                else "uncalibrated placement")
+        (toks_c, sig_c), (toks_g, sig_g) = out["cpu"], out["cuda"]
+        if toks_c != toks_g or sig_c != sig_g:
+            diff = [k for k in keys if sig_c[k] != sig_g[k]]
+            raise AssertionError(f"llama4 float32 twin cluster ({what}): card "
+                                 f"and CPU disagree (tokens equal: "
+                                 f"{toks_c == toks_g}; signals that differ: "
+                                 f"{diff})")
+        if sig_g["migrations"] <= 0 or sig_g["unfinished"] or \
+                (predictive and sig_g["prefetch_pointer_swaps"] <= 0):
+            raise AssertionError(f"llama4 float32 twin cluster ({what}): "
+                                 f"expected migrations (and staged "
+                                 f"adoptions) and a finished run, got {sig_g}")
+        log(f"reference: llama4 float32 twin cluster, {what}: card kernels "
+            f"and CPU plain versions give the same {sum(map(len, toks_c))} "
+            f"tokens, decisions {sig_g['decisions']}, "
+            f"{sig_g['migrations']} migrations ({sig_g['expert_moves']} "
+            f"expert moves, {sig_g['prefetch_pointer_swaps']} staged "
+            f"adoptions); the caller's weights unchanged after each serve")
 
 
 PROFILE_GROUPS = (("expert GEMM", ("gmm_",)),              # both, both routes
@@ -1130,9 +1271,10 @@ def cluster_phase(args, cfg, params, counters):
     reqs = make_requests(cfg, 16, 100, 900, new_tokens, seed=args.seed + 1,
                          gap=0.1)
     # time each adoption of a placement: serve_real_cluster moves the
-    # experts' weights through this function, once per shared runner
+    # experts' weights in place through this function, once per distinct
+    # weight tree
     moves = []
-    migrate = timed_migrations(tfm, moves)
+    migrate = timed_migrations(tfm, cfg, moves, [0])
     reset_counts(counters)
     try:
         res, engines, wall = serve_cluster(
@@ -1178,13 +1320,13 @@ def cluster_phase(args, cfg, params, counters):
         f"{torch.cuda.get_device_name(0)}")
     log(f"cluster: decisions {sig['decisions']}, per engine "
         f"{sig['per_engine']}, {sig['migrations']} placements adopted "
-        f"({sig['expert_moves']} expert moves), apply_placement wall ms "
-        f"{[round(t * 1e3, 1) for t in moves]}, kv_peak {sig['kv_peak']:.4f}")
+        f"({sig['expert_moves']} expert moves), wall ms and peak rise MiB "
+        f"of each move {each_move(moves)}, kv_peak {sig['kv_peak']:.4f}")
     log(f"cluster: int8 pool holds {fp / i8:.4f}x the tokens per byte of "
         f"the bf16 pool ({i8} against {fp} bytes per page across "
         f"{cfg.n_layers} layers); launches {launches}, on the tensor cores "
         f"{tc}")
-    del res, engines               # the runner's migrated weights: 10.5 GiB
+    del res, engines
 
     forwards = [0]
 
@@ -1205,7 +1347,7 @@ def cluster_phase(args, cfg, params, counters):
     return launches, tc
 
 
-def profile_write_and_stats(rows, layer_steps, moe_steps):
+def profile_write_and_stats(rows, layer_steps, moe_steps, label="cluster"):
     """From the profiled int8 cluster serve: the int8 KV write is one
     kernel per layer-step, and the statistics one single-block kernel per
     MoE layer-step, with no memset of their own (the grid path's two). The
@@ -1222,50 +1364,66 @@ def profile_write_and_stats(rows, layer_steps, moe_steps):
     grids = count("source_expert_count_grid")
     if not one_each(writes, layer_steps) or not one_each(blocks, moe_steps) \
             or grids:
-        raise AssertionError(f"profile cluster: expected one int8 write "
+        raise AssertionError(f"profile {label}: expected one int8 write "
                              f"kernel per layer-step ({layer_steps}) and one "
                              f"single-block stats kernel per MoE layer-step "
                              f"({moe_steps}), saw {writes} writes, {blocks} "
                              f"single-block and {grids} grid stats kernels")
     n_kernels = sum(n for _, n, key in rows if "emset" not in key)
     memsets = sum(n for _, n, key in rows if "emset" in key)
-    log(f"profile cluster: {layer_steps} layer-steps: {writes} int8 KV write "
+    log(f"profile {label}: {layer_steps} layer-steps: {writes} int8 KV write "
         f"kernels (one per layer-step), {blocks} stats kernels on one block "
         f"(one per MoE layer-step, no memset); {n_kernels} device kernels "
         f"and {memsets} memsets in all, {n_kernels / layer_steps:.1f} kernels "
         f"per layer-step")
 
 
-def timed_migrations(tfm, moves):
-    """Wrap tfm.migrate_params_for_placement (through which
-    serve_real_cluster moves the experts' weights) to time each call into
-    ``moves``; returns the original to restore."""
+def timed_migrations(tfm, cfg, adoptions, peak):
+    """Wrap tfm.migrate_params_for_placement (each live adoption of a
+    placement) to record, for each call, its wall s, the expert rows it
+    moved, their bytes and the rise of the card's peak memory across it
+    over what was allocated just before. Each call resets the peak
+    counter, so ``peak[0]`` keeps the largest peak seen before a reset.
+    Returns the original to restore."""
     migrate = tfm.migrate_params_for_placement
+    ewb = tfm.expert_weight_bytes(cfg)
 
-    def timed_migrate(*a, **kw):
+    def timed(params, mcfg, old, new):
+        moved = int((np.asarray(old) != np.asarray(new)).sum())
         torch.cuda.synchronize()
+        peak[0] = max(peak[0], torch.cuda.max_memory_allocated())
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        out = migrate(*a, **kw)
+        out = migrate(params, mcfg, old, new)
         torch.cuda.synchronize()
-        moves.append(time.perf_counter() - t0)
+        adoptions.append({"s": time.perf_counter() - t0, "rows": moved,
+                          "bytes": moved * ewb,
+                          "rise": torch.cuda.max_memory_allocated() - base})
         return out
 
-    tfm.migrate_params_for_placement = timed_migrate
+    tfm.migrate_params_for_placement = timed
     return migrate
+
+
+def each_move(moves):
+    """(wall ms, peak rise MiB) of each timed move."""
+    return [(round(m["s"] * 1e3, 1), round(m["rise"] / 2**20)) for m in moves]
 
 
 def dense_cluster_phase(args, cfg, params, counters):
     """16 requests arriving over time through serve_real_cluster on two
     dense-cache RealModelEngines with the capacity-padded MoE dispatch,
     under the Gimbal scheduler and an uncalibrated placement whose small
-    window makes experts migrate (each engine moves its own weights)."""
+    window makes experts migrate (the engines share one weight tree,
+    moved once per adoption)."""
     from repro_torch.core import PlacementConfig
     from repro_torch.models import transformer as tfm
     max_slots, max_len, new_tokens = 8, 1024, 32
     reqs = make_requests(cfg, 16, 100, 900, new_tokens, seed=args.seed + 2,
                          gap=0.1)
     moves = []
-    migrate = timed_migrations(tfm, moves)
+    migrate = timed_migrations(tfm, cfg, moves, [0])
     reset_counts(counters)
     try:
         res, engines, wall, kv_peak = serve_dense_cluster(
@@ -1311,13 +1469,13 @@ def dense_cluster_phase(args, cfg, params, counters):
         f"{torch.cuda.get_device_name(0)}")
     log(f"dense cluster: decisions {sig['decisions']}, per engine "
         f"{sig['per_engine']}, {sig['migrations']} placements adopted "
-        f"({sig['expert_moves']} expert moves), migrate wall ms "
-        f"{[round(t * 1e3, 1) for t in moves]}, kv_peak {kv_peak:.4f} "
+        f"({sig['expert_moves']} expert moves), wall ms and peak rise MiB "
+        f"of each move {each_move(moves)}, kv_peak {kv_peak:.4f} "
         f"(peak token occupancy of the dense caches in the engines' traces; "
         f"the cluster's own kv_peak reads page pools: "
         f"{sig['kv_peak']:.4f}), dense caches {cache_mib:.1f} MiB in all; "
         f"launches {launches}, on the tensor cores {tc}")
-    del res, engines               # their migrated weights: 2 x 10.5 GiB
+    del res, engines
 
     def again():
         again_reqs = make_requests(cfg, 16, 100, 900, new_tokens,
@@ -1650,8 +1808,8 @@ def scenario_phase(args, cfg, params, counters):
                   "width)")
     log(f"scenario Queue C serve: peak card memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
-        f"(the weights, the migrated tree, the prefetch's staged copy and "
-        f"a migration's transient copy of the expert stacks)")
+        f"(the weights, moved in place, with the prefetch's staged rows "
+        f"beside them)")
 
     env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
     for flags in (("--real", "--paged"), ("--real",)):
@@ -1673,6 +1831,176 @@ def scenario_phase(args, cfg, params, counters):
         log(f"example: serve_moe_paged.main({mode}=True) on the float32 twin "
             f"on the card: its bit-identity asserts hold")
     return launches["agentic_sessions"], tc["agentic_sessions"]
+
+
+def llama4_moe_layer_check(cfg, params):
+    """The full-width MoE layer through the kernels (bf16) against a plain
+    f32 computation of the same function on the card, for 8 tokens: each
+    token's routed expert and the shared expert, the weights read row by
+    row. Within the bf16 bar (3e-2)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_route import ROW_TOL, row_rel_err
+    from repro_torch.models import moe as moe_mod
+    lp = {k: (v[0] if not isinstance(v, dict) else
+              {n: w[0] for n, w in v.items()})
+          for k, v in params["blocks"]["pos1"]["moe"].items()}
+    g = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.randn(8, 1, cfg.d_model, generator=g, device="cuda") \
+        .to(torch.bfloat16)
+    placement = torch.arange(cfg.moe.n_experts, dtype=torch.int32,
+                             device="cuda")
+    y, _ = moe_mod.moe_layer(lp, cfg, x, placement, collect_stats=False)
+    gates, idx, _ = moe_mod.route(lp, cfg, x)
+    xf = x[:, 0].float()
+    ref = torch.zeros_like(xf)
+    for t in range(xf.shape[0]):
+        for k in range(cfg.moe.top_k):
+            e = int(idx[t, 0, k])
+            h = F.silu(xf[t] @ lp["w_gate"][e].float()) \
+                * (xf[t] @ lp["w_up"][e].float())
+            ref[t] += float(gates[t, 0, k]) * (h @ lp["w_down"][e].float())
+    sh = lp["shared"]
+    h = F.silu(xf @ sh["w_gate"].float()) * (xf @ sh["w_up"].float())
+    ref += h @ sh["w_down"].float()
+    err, rel = max_err(y[:, 0], ref), row_rel_err(y[:, 0], ref)
+    if not torch.isfinite(y).all() or rel > ROW_TOL[torch.bfloat16]:
+        raise AssertionError(f"llama4 MoE layer at full width: row_rel_err "
+                             f"{rel} against the f32 computation (tolerance "
+                             f"{ROW_TOL[torch.bfloat16]})")
+    log(f"llama4: the full-width MoE layer (8 tokens, top-1 of 128 experts "
+        f"of 5120 -> 8192 -> 5120, and the shared expert) through the "
+        f"kernels in bf16 against an f32 computation on the card: each "
+        f"token's row within {rel:.3g} of its norm (tolerance "
+        f"{ROW_TOL[torch.bfloat16]:g}: a few bf16 roundings of a row), "
+        f"max_abs_err {err:.3g} for |y| up to {float(ref.abs().max()):.3g}")
+
+
+def llama4_serve_phase(args, counters):
+    """llama4-maverick at full width (d 5120, 40/8 heads of 128, vocab
+    202048, 128 experts top-1 of 8192, one shared expert of 8192, a dense
+    FFN of 16384), depth cut 48 -> 2 (one period: a dense layer and a MoE
+    layer), bf16, with random weights from ``--seed``: 16 requests with
+    prompts of 128 to 1024 tokens and 32 new tokens each, arriving over
+    time, through serve_real_cluster on two PagedRealEngines sharing one
+    runner, int8 KV pages, the Gimbal scheduler and an uncalibrated
+    placement (experts migrate), profiled on the device. Every adoption of
+    a placement moves the experts in place: its peak memory rise must stay
+    within the moved experts' bytes plus 64 MiB."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import PlacementConfig
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import PagedEngineConfig
+    full = get_config("llama4-maverick-400b-a17b")
+    cfg = reduced(full, n_layers=2)
+    m = cfg.moe
+    log(f"llama4: reduced n_layers {full.n_layers}→{cfg.n_layers} (one "
+        f"period: a dense FFN of {cfg.d_ff}, then {m.n_experts} experts "
+        f"top-{m.top_k} of {m.d_expert} and {m.n_shared_experts} shared of "
+        f"{m.d_shared}; width unchanged: d={cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads}, hd={cfg.head_dim}, vocab "
+        f"{cfg.vocab_size}, {cfg.dtype}); {cfg.param_count() * 2 / 2**30:.2f} "
+        f"GiB of weights by ModelConfig.param_count()")
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    params = tfm.init_params(cfg, generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    after_init = torch.cuda.memory_allocated()
+    log(f"llama4: init of random weights from seed {args.seed} on the card "
+        f"in {time.perf_counter() - t0:.1f} s: "
+        f"{(after_init - base) / 2**30:.2f} GiB allocated, init peak "
+        f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB "
+        f"({after_init / 2**30:.2f} GiB on the card in all)")
+    llama4_moe_layer_check(cfg, params)
+    ecfg = PagedEngineConfig(page_size=16, n_pages=1024,
+                             max_blocks_per_req=72, max_batch=8,
+                             token_budget=512,
+                             chunk_buckets=(64, 128, 256, 512),
+                             kv_dtype="int8", device="cuda")
+    new_tokens = 32
+    reqs = make_requests(cfg, 16, 128, 1024, new_tokens, seed=args.seed + 3,
+                         gap=0.1)
+    before = weight_fingerprint(params)
+    adoptions, peak, forwards, got = [], [0], [0], {}
+
+    def run():
+        res, engines, wall = serve_cluster(
+            cfg, params, ecfg, reqs, window_tokens=1024,
+            placement_cfg=PlacementConfig.uncalibrated())
+        got.update(res=res, wall=wall)
+        return (f"{res.signals['rounds']} rounds, {forwards[0]} forward "
+                "passes")
+
+    torch.cuda.reset_peak_memory_stats()
+    migrate = timed_migrations(tfm, cfg, adoptions, peak)
+    restore = counted_forwards(tfm, forwards)
+    reset_counts(counters)
+    try:
+        rows, _ = profiled("llama4_serve", run)
+    finally:
+        restore()
+        tfm.migrate_params_for_placement = migrate
+    launches, tc = read_counts(counters)
+    torch.cuda.synchronize()
+    peak[0] = max(peak[0], torch.cuda.max_memory_allocated())
+
+    res, sig = got["res"], got["res"].signals
+    bad = [r.req_id for r in reqs if r.error or r.finish_time < 0
+           or len(r.full_output_tokens) != new_tokens
+           or not all(0 <= t < cfg.vocab_size for t in r.full_output_tokens)]
+    if bad or sig["unfinished"]:
+        raise AssertionError(f"llama4_serve: requests {bad} did not finish "
+                             f"with a full in-vocabulary stream "
+                             f"({sig['errors']})")
+    if sig["migrations"] <= 0 or not adoptions:
+        raise AssertionError("llama4_serve: no placement was adopted, so no "
+                             "expert weights moved on the card")
+    if min(sig["per_engine"].values()) <= 0:
+        raise AssertionError(f"llama4_serve: an engine served nothing "
+                             f"({sig['per_engine']})")
+    for name in ("paged_decode", "moe_gmm_ragged", "source_expert_count",
+                 "pack_kv", "unpack_kv"):        # the paged path's five
+        if launches[name] <= 1:
+            raise AssertionError(f"llama4_serve: kernel {name} launched "
+                                 f"{launches[name]} times")
+    check_routes("llama4_serve", launches, tc,
+                 ("moe_gmm_ragged", "paged_decode"))
+    slack = 64 << 20
+    for i, a in enumerate(adoptions):
+        if a["rise"] > a["bytes"] + slack:
+            raise AssertionError(f"llama4_serve: adoption {i} raised the "
+                                 f"peak by {a['rise']} bytes for {a['rows']} "
+                                 f"moved experts ({a['bytes']} bytes) + 64 "
+                                 f"MiB")
+    if not all(torch.equal(a, b) for a, b in
+               zip(before, weight_fingerprint(params))):
+        raise AssertionError("llama4_serve: the serve changed the caller's "
+                             "weights")
+    profile_write_and_stats(rows, forwards[0] * cfg.n_layers,
+                            forwards[0] * cfg.n_moe_layers, "llama4_serve")
+    prompt = sum(r.prompt_len for r in reqs)
+    gen_tok = sum(len(r.full_output_tokens) for r in reqs)
+    log(f"llama4_serve: {len(reqs)}/{len(reqs)} requests arriving over "
+        f"{reqs[-1].arrival_time:.1f} virtual s served through "
+        f"serve_real_cluster on 2 engines with int8 KV pages at full width "
+        f"({cfg.n_layers} layers): {sig['rounds']} rounds, {prompt} prompt + "
+        f"{gen_tok} generated tokens in {got['wall']:.2f} s wall (profiled), "
+        f"on {torch.cuda.get_device_name(0)}")
+    log(f"llama4_serve: decisions {sig['decisions']}, per engine "
+        f"{sig['per_engine']}, {sig['migrations']} placements adopted "
+        f"({sig['expert_moves']} expert moves), kv_peak "
+        f"{sig['kv_peak']:.4f}; launches {launches}, on the tensor cores {tc}")
+    for i, a in enumerate(adoptions):
+        log(f"llama4_serve: adoption {i}: {a['s'] * 1e3:.1f} ms wall, "
+            f"{a['rows']} expert rows moved in place = "
+            f"{a['bytes'] / 2**20:.0f} MiB, peak rise "
+            f"{a['rise'] / 2**20:.1f} MiB (bound: the moved bytes + 64 MiB)")
+    log(f"llama4_serve: card memory after init {after_init / 2**30:.2f} GiB, "
+        f"serve peak {peak[0] / 2**30:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated); the caller's weights unchanged "
+        f"after the serve (per-expert fingerprints equal)")
+    return launches, tc
 
 
 def main() -> int:
@@ -1729,6 +2057,11 @@ def main() -> int:
     phase_done("dense cluster (with its profiled rerun)")
     scen_launches, scen_tc = scenario_phase(args, cfg, params, counters)
     phase_done("scenario")
+    del params                    # qwen3's weights: room for llama4's
+    gc.collect()
+    torch.cuda.empty_cache()
+    l4_launches, l4_tc = llama4_serve_phase(args, counters)
+    phase_done("llama4_serve (profiled)")
     # each kernel's main-path count: the dense cluster serve for the two
     # kernels of the dense plane, the paged cluster serve for the others
     main_launches = dict(launches, flash_decode=dense_launches["flash_decode"],
@@ -1763,14 +2096,16 @@ def main() -> int:
                        "serve": serve_tc.get(name, 0),
                        "cluster_serve": cluster_tc.get(name, 0),
                        "dense_cluster_serve": dense_tc[name],
-                       "scenario_serve": scen_tc.get(name, 0)}}
+                       "scenario_serve": scen_tc.get(name, 0),
+                       "llama4_serve": l4_tc.get(name, 0)}}
         kernels.append({
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1], "launches": main_launches[name],
             "launches_by_path": {"serve": serve_launches.get(name, 0),
                                  "cluster_serve": launches.get(name, 0),
                                  "dense_cluster_serve": dense_launches[name],
-                                 "scenario_serve": scen_launches.get(name, 0)},
+                                 "scenario_serve": scen_launches.get(name, 0),
+                                 "llama4_serve": l4_launches.get(name, 0)},
             "max_abs_err": max(r["err"] for dt, r in rows
                                if dt.split("/")[0] in ("bfloat16", "int32")),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],

@@ -8,6 +8,7 @@ from repro_torch.configs.base import ModelConfig
 
 # arch id -> module name in this package
 _ARCHS: Dict[str, str] = {
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
 }
 

@@ -2,4 +2,5 @@
 dense-cache engines under the Gimbal loop, experts migrating live) and
 ``serve_moe_paged`` (two paged engines through ``serve_real_cluster``, with
 its ``--shared-prefix`` and ``--chaos`` modes). ``launch/serve.py --real``
-runs them."""
+runs them. ``placement_demo`` walks through Algorithm 2's expert placement
+on a synthetic routing window (numpy only, no model)."""

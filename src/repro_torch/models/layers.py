@@ -16,20 +16,40 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 # ---------------------------------------------------------------- init utils
+# f32 bytes one random draw may take: a leaf above it is drawn in slices of
+# its first axis (whole experts of a stacked expert leaf) straight into the
+# leaf, so init peaks at the model plus one slice. Every leaf of
+# qwen3-moe-30b-a3b fits in one draw, so its weights from a seed are those
+# of a whole-leaf draw.
+DRAW_BYTES = 2 << 30
+
+
+def _draw(shape, dtype, device, fill):
+    """A leaf of ``dtype`` whose values are ``fill(f32 buffer)`` cast down,
+    filled slice by slice along the first axis."""
+    shape = tuple(shape)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    row = 4 * int(np.prod(shape[1:], dtype=np.int64))
+    step = max(1, DRAW_BYTES // max(row, 1))
+    for i in range(0, shape[0], step):
+        n = min(step, shape[0] - i)     # one slice alive at a time
+        out[i:i + n] = fill(torch.empty((n,) + shape[1:],
+                                        dtype=torch.float32, device=device))
+    return out
+
+
 def dense_init(shape, in_axis: int = 0, dtype=torch.bfloat16, *,
                generator: torch.Generator, device="cuda"):
     """Truncated-normal fan-in init (what LM stacks actually use)."""
     std = 1.0 / np.sqrt(shape[in_axis])
-    t = torch.empty(shape, dtype=torch.float32, device=device)
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return (t * std).to(dtype)
+    return _draw(shape, dtype, device, lambda t: torch.nn.init.trunc_normal_(
+        t, 0.0, 1.0, -2.0, 2.0, generator=generator).mul_(std))
 
 
 def embed_init(shape, dtype=torch.bfloat16, *, generator: torch.Generator,
                device="cuda"):
-    t = torch.randn(shape, dtype=torch.float32, device=device,
-                    generator=generator)
-    return (t * 0.02).to(dtype)
+    return _draw(shape, dtype, device,
+                 lambda t: t.normal_(generator=generator).mul_(0.02))
 
 
 # ---------------------------------------------------------------- norms

@@ -2,7 +2,7 @@
 
 * Expert weights are stored in **physical slot order**; the Gimbal expert
   placement is a logical->physical permutation passed as a runtime input
-  (``placement``), so migrating experts is a gather of weight rows.
+  (``placement``), so migrating experts moves weight rows, in place.
 * Two dispatch formulations: the sort-based dropless ragged path
   (``kernels/moe_dispatch.py`` + the ragged GMM kernel, the default) and
   the capacity-padded path (``ragged=False``: per-row expert queues of
@@ -23,7 +23,10 @@ from repro_torch.kernels.moe_dispatch import (pick_row_block, ragged_combine,
                                               ragged_dispatch, ragged_gmm)
 from repro_torch.kernels.moe_gmm import moe_gmm
 from repro_torch.kernels.source_expert_count import source_expert_count
-from repro_torch.models.layers import dense_init, torch_dtype
+from repro_torch.models.layers import dense_init, init_mlp, mlp, torch_dtype
+
+
+EXPERT_LEAVES = ("w_gate", "w_up", "w_down")    # what a migration moves
 
 
 def init_moe(cfg, *, generator: torch.Generator, device="cuda"):
@@ -31,15 +34,16 @@ def init_moe(cfg, *, generator: torch.Generator, device="cuda"):
     d = cfg.d_model
     dt = torch_dtype(cfg.dtype)
     kw = dict(generator=generator, device=device)
-    if m.n_shared_experts:
-        raise NotImplementedError("shared experts are not ported yet "
-                                  "(ROADMAP.md Queue A: other model families)")
-    return {
+    p = {
         "router": dense_init((d, m.n_experts), 0, torch.float32, **kw),
         "w_gate": dense_init((m.n_experts, d, m.d_expert), 1, dt, **kw),
         "w_up": dense_init((m.n_experts, d, m.d_expert), 1, dt, **kw),
         "w_down": dense_init((m.n_experts, m.d_expert, d), 1, dt, **kw),
     }
+    if m.n_shared_experts:
+        # the always-on shared expert(s), one SwiGLU MLP (llama4)
+        p["shared"] = init_mlp(d, m.n_shared_experts * m.d_shared, dt, **kw)
+    return p
 
 
 def route(params, cfg, x2d):
@@ -182,7 +186,8 @@ def moe_layer(params, cfg, x, placement, *, source_ids=None,
         y, stats = _ragged_moe_ffn(params, x, gates, logical_idx, placement,
                                    E, K, src, n_sources, collect_stats,
                                    token_mask=token_mask)
-        return y, _moe_epilogue(stats, probs, logical_idx, E, K)
+        return _moe_epilogue(params, cfg, x, y, stats, probs, logical_idx, E,
+                             K)
 
     stats = {}
     if collect_stats:
@@ -200,32 +205,74 @@ def moe_layer(params, cfg, x, placement, *, source_ids=None,
     else:
         y = _padded_moe_ffn(params, x, gates, logical_idx, placement, E, K,
                             cf)
-    return y, _moe_epilogue(stats, probs, logical_idx, E, K)
+    return _moe_epilogue(params, cfg, x, y, stats, probs, logical_idx, E, K)
 
 
-def _moe_epilogue(stats, probs, logical_idx, E, K):
-    """The router aux loss (train-time load balancing) from the routing
-    probabilities, added to ``stats`` (both dispatch paths)."""
+def _moe_epilogue(params, cfg, x, y, stats, probs, logical_idx, E, K):
+    """Both dispatch paths: the shared-expert branch on the layer's input
+    (the reference runs it on the decode regroup's ``(1, B, D)`` view of
+    ``x``; ``@`` folds the leading dimensions, so the rows are the same),
+    and the router aux loss (train-time load balancing) from the routing
+    probabilities, added to ``stats``. Returns (y, stats)."""
+    if cfg.moe.n_shared_experts:
+        y = y + mlp(params["shared"], x)
     probs_mean = probs.reshape(-1, E).mean(dim=0)
     frac = F.one_hot(logical_idx.reshape(-1, K).long(), E).float() \
         .sum(dim=1).mean(dim=0)
     stats["aux_loss"] = E * torch.sum(probs_mean * frac)
-    return stats
+    return y, stats
 
 
-def migrate_expert_weights(params, old_placement, new_placement):
-    """Reorder physical expert weights when the placement changes:
-    weights[new_phys] = weights[old_phys] for each logical expert."""
-    E = old_placement.shape[0]
-    old = old_placement.long()
-    new = new_placement.long()
-    ar = torch.arange(E, device=old.device)
-    inv_new = torch.zeros_like(new)
+def moved_slots(old_placement, new_placement):
+    """(dst, src) physical slots of one layer, as CPU int64 tensors: slot
+    ``dst`` takes the weights of slot ``src``, the old slot of the logical
+    expert it holds under ``new_placement``; slots that keep their expert
+    are left out."""
+    old = torch.as_tensor(old_placement).to("cpu", torch.long)
+    new = torch.as_tensor(new_placement).to("cpu", torch.long)
+    ar = torch.arange(old.shape[0])
+    inv_new = torch.empty_like(new)
     inv_new[new] = ar
     # physical slot p_new holds logical expert inv_new[p_new]; its source
     # slot is old_placement[inv_new[p_new]]
     src = old[inv_new]
-    out = dict(params)
-    for name in ("w_gate", "w_up", "w_down"):
-        out[name] = params[name][src.to(params[name].device)]
-    return out
+    dst = torch.nonzero(src != ar).flatten()
+    return dst, src[dst]
+
+
+def _cycles(dst, src):
+    """The moved slots as cycles [p0, p1, ..., pL-1]: slot p_k takes the
+    weights of slot p_k+1, and the last those of p0."""
+    take = dict(zip(dst.tolist(), src.tolist()))
+    cycles = []
+    while take:
+        p, cyc = next(iter(take)), []
+        while p in take:
+            cyc.append(p)
+            p = take.pop(p)
+        cycles.append(cyc)
+    return cycles
+
+
+def migrate_expert_weights(params, old_placement, new_placement):
+    """Reorder physical expert weights when the placement changes, in
+    place: weights[new_phys] = weights[old_phys] for each logical expert,
+    bit for bit the reference's functional result. Each cycle of the
+    permutation is followed with a buffer of one expert row (its first
+    row set aside, each slot taking its successor's, the last taking the
+    buffer), so a move holds one row of one tensor beside the weights;
+    slots that keep their expert are not touched, nor is any other leaf.
+    Returns ``params``."""
+    cycles = _cycles(*moved_slots(old_placement, new_placement))
+    if not cycles:
+        return params
+    for name in EXPERT_LEAVES:
+        w = params[name]
+        buf = torch.empty_like(w[0])
+        for cyc in cycles:
+            buf.copy_(w[cyc[0]])
+            for a, b in zip(cyc, cyc[1:]):
+                w[a].copy_(w[b])
+            w[cyc[-1]].copy_(buf)
+        del buf                   # before the next tensor's buffer
+    return params

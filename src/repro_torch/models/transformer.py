@@ -120,7 +120,9 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
                 device="cuda"):
     """Random params in the reference's layout. Each super-block's layer is
     drawn on its own and copied into the stacked leaves, so peak memory is
-    the model plus one layer."""
+    the model plus one layer; with one super-block the stacking dimension
+    is a view of the layer's leaves, and peak memory is the model plus one
+    draw (``layers.DRAW_BYTES``)."""
     descs = period_descriptors(cfg)
     ns = n_super_blocks(cfg)
     kw = dict(generator=generator, device=device)
@@ -128,6 +130,9 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
     blocks = {}
     for j, desc in enumerate(descs):
         first = init_layer(cfg, desc, **kw)
+        if ns == 1:
+            blocks[f"pos{j}"] = tree_map(lambda a: a[None], first)
+            continue
         stacked = tree_map(
             lambda a: torch.empty((ns,) + tuple(a.shape), dtype=a.dtype,
                                   device=a.device), first)
@@ -429,31 +434,59 @@ def identity_placement(cfg: ModelConfig, device="cpu"):
                         device=device).repeat(n_moe, 1)
 
 
+def _moe_layers(cfg: ModelConfig):
+    """(n_super, [(moe-position index, block position j)]): placement row
+    l = i * mp + mi lives at super-block i, position ``blocks/pos{j}``."""
+    moe_pos = _moe_positions(period_descriptors(cfg))
+    return n_super_blocks(cfg), list(enumerate(moe_pos))
+
+
+def expert_stacks(params, cfg: ModelConfig) -> List[torch.Tensor]:
+    """The stacked expert weight tensors of ``params``, the leaves a
+    migration moves (``"shared"`` and the router stay where they are)."""
+    _, layers = _moe_layers(cfg)
+    return [params["blocks"][f"pos{j}"]["moe"][name] for _, j in layers
+            for name in moe_mod.EXPERT_LEAVES]
+
+
+def _placement_rows(cfg, placement):
+    ns, layers = _moe_layers(cfg)
+    return torch.as_tensor(placement).to("cpu", torch.long) \
+        .reshape(ns, len(layers), -1)
+
+
+def move_experts(params, cfg: ModelConfig, old_placement, new_placement):
+    """Move the stacked expert weights from ``old_placement`` to
+    ``new_placement`` in place, layer by layer
+    (``moe.migrate_expert_weights``: one expert row beside the weights at
+    a time). Returns the number of (layer, slot) rows moved."""
+    ns, layers = _moe_layers(cfg)
+    if not layers:
+        return 0
+    old_r = _placement_rows(cfg, old_placement)
+    new_r = _placement_rows(cfg, new_placement)
+    for i in range(ns):
+        for mi, j in layers:
+            moe = params["blocks"][f"pos{j}"]["moe"]
+            moe_mod.migrate_expert_weights(
+                {name: moe[name][i] for name in moe_mod.EXPERT_LEAVES},
+                old_r[i, mi], new_r[i, mi])
+    # slot new[l] takes logical expert l from slot old[l]
+    return int((old_r != new_r).sum())
+
+
 def migrate_params_for_placement(params, cfg, old_placement, new_placement):
-    """Reorder the stacked physical expert weights after a placement update
-    (functional: returns a new tree, ``params`` is untouched).
+    """Adopt a placement update: move the stacked physical expert weights
+    in place (:func:`move_experts`) and return ``params``, the same tree.
+    The reference's version is functional and returns a new tree; this one
+    holds no second copy of the experts, which at full width would not fit
+    beside the first.
 
     ``placement`` rows are (n_moe_layers, E) = (ns * mp, E); layer l lives at
     super-block l // mp, moe-position index l % mp.
     """
-    descs = period_descriptors(cfg)
-    moe_pos = _moe_positions(descs)
-    mp = len(moe_pos)
-    if mp == 0:
-        return params
-    ns = n_super_blocks(cfg)
-    old_r = torch.as_tensor(old_placement, dtype=torch.int32).reshape(ns, mp, -1)
-    new_r = torch.as_tensor(new_placement, dtype=torch.int32).reshape(ns, mp, -1)
-    blocks = dict(params["blocks"])
-    for mi, j in enumerate(moe_pos):
-        blk = dict(blocks[f"pos{j}"])
-        per = [moe_mod.migrate_expert_weights(
-            {k: v[i] for k, v in blk["moe"].items()}, old_r[i, mi],
-            new_r[i, mi]) for i in range(ns)]
-        blk["moe"] = {k: torch.stack([p[k] for p in per])
-                      for k in blk["moe"]}
-        blocks[f"pos{j}"] = blk
-    return dict(params, blocks=blocks)
+    move_experts(params, cfg, old_placement, new_placement)
+    return params
 
 
 def expert_weight_bytes(cfg) -> int:
@@ -467,11 +500,39 @@ def expert_weight_bytes(cfg) -> int:
 
 
 def stage_expert_prefetch(params, cfg, cur_placement, target_placement):
-    """Double-buffered expert-weight prefetch: the params tree the model
-    will need under ``target_placement``, built without touching the live
-    ``params``; adopting it is a pointer swap."""
-    return migrate_params_for_placement(params, cfg, cur_placement,
-                                        target_placement)
+    """Expert-weight prefetch: gather from the live ``params`` only the
+    expert rows that move between ``cur_placement`` and
+    ``target_placement``, with their destination slots, leaving ``params``
+    as it is. :func:`commit_expert_prefetch` writes them in place when the
+    placement is adopted; the stage holds (moved rows) x
+    ``expert_weight_bytes`` bytes. Returns a list of (super-block, block
+    position, destination slots, {tensor name: rows})."""
+    ns, layers = _moe_layers(cfg)
+    cur_r = _placement_rows(cfg, cur_placement)
+    tgt_r = _placement_rows(cfg, target_placement)
+    staged = []
+    for i in range(ns):
+        for mi, j in layers:
+            dst, src = moe_mod.moved_slots(cur_r[i, mi], tgt_r[i, mi])
+            if not dst.numel():
+                continue
+            moe = params["blocks"][f"pos{j}"]["moe"]
+            dev = moe["w_gate"].device
+            staged.append((i, j, dst.to(dev), {
+                name: moe[name][i][src.to(dev)]
+                for name in moe_mod.EXPERT_LEAVES}))
+    return staged
+
+
+def commit_expert_prefetch(params, staged) -> int:
+    """Write a :func:`stage_expert_prefetch` stage into ``params`` in place
+    (the tree it was gathered from, still under the stage's starting
+    placement). Returns the number of (layer, slot) rows written."""
+    for i, j, dst, rows in staged:
+        moe = params["blocks"][f"pos{j}"]["moe"]
+        for name, r in rows.items():
+            moe[name][i].index_copy_(0, dst, r)
+    return sum(dst.numel() for _, _, dst, _ in staged)
 
 
 def superblock_forward(blk_params, cfg, descs, x, positions, blk_cache,

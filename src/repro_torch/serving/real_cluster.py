@@ -40,6 +40,7 @@ from repro_torch.core.traces import TraceTable
 from repro_torch.ft.elastic import ElasticController
 from repro_torch.ft.faults import FaultInjector, FaultPlan
 from repro_torch.ft.health import EngineHealthMonitor, HealthConfig
+from repro_torch.models import transformer as tfm
 from repro_torch.serving.request import Request, RequestState
 from repro_torch.serving.simulator import SimResult
 
@@ -60,10 +61,10 @@ class RealClusterConfig:
     placement_cfg: Optional[PlacementConfig] = None
     # ---- predictive placement (core/forecast.py) -------------------------
     # predictive: rebalance against the forecaster's next-window traffic.
-    # prefetch: stage the target placement's weights as a DOUBLE BUFFER
-    # (migrate_params_for_placement is functional, so staged and serving
-    # params coexist) and adopt via pointer swap once the modeled copy
-    # lands — the serving path never pays the migration.
+    # prefetch: stage the expert rows the target placement moves (gathered
+    # beside the serving weights, which stay as they are) and commit them
+    # in place once the modeled copy lands — the serving path never pays
+    # the migration.
     predictive: bool = False
     prefetch: bool = False
     forecast_cfg: Optional[ForecastConfig] = None
@@ -134,6 +135,77 @@ def _restore_cluster_state(path: str, sched, coord,
                                if int(e) in table.engine_ids})
 
 
+class ExpertMigrator:
+    """Moves the engines' expert weights as the cluster adopts placements,
+    in place, in the trees the engines hold (the reference builds a new
+    tree per holder instead).
+
+    Each distinct weight tree moves once: paged engines may share one
+    runner and dense engines one ``params`` tree, so trees are told apart
+    by the storage of their stacked expert tensors (a tree moved twice
+    would be wrong). A staged prefetch holds only the rows the target
+    placement moves and is committed in place at adoption, when it was
+    gathered under the placement still serving; a stale one falls back to
+    a live move. ``pointer_swaps`` counts committed stages, as the
+    reference counts its double-buffer flips. :meth:`restore` moves the
+    weights back to the starting placement and resets every engine's
+    placement to it."""
+
+    def __init__(self, engines, cfg):
+        self.engines, self.cfg = engines, cfg
+        self.start = np.asarray(engines[0].placement).copy()
+        self.cur = self.start
+        self.staged: Optional[Dict] = None
+        self.pointer_swaps = 0
+
+    def trees(self) -> Dict[tuple, Dict]:
+        trees: Dict[tuple, Dict] = {}
+        for e in self.engines:
+            params = getattr(e, "runner", e).params
+            key = tuple(t.data_ptr()
+                        for t in tfm.expert_stacks(params, self.cfg))
+            trees.setdefault(key, params)
+        return trees
+
+    def stage(self, target_perms) -> None:
+        """Start the asynchronous weight copy: gather, from each distinct
+        tree, the expert rows the target placement moves, next to (not in
+        place of) the live weights, which keep serving as they are."""
+        target = np.asarray(target_perms)
+        self.staged = {"perms": target, "base": self.cur.copy(), "rows": {
+            key: tfm.stage_expert_prefetch(params, self.cfg, self.cur, target)
+            for key, params in self.trees().items()}}
+
+    def adopt(self, new_perms: np.ndarray) -> None:
+        """Adopting a placement means MOVING the weights, then handing the
+        engines the new table. (``tfm``'s functions are looked up at each
+        call, so a caller may wrap them.)"""
+        staged, self.staged = self.staged, None
+        fresh = staged is not None \
+            and np.array_equal(staged["perms"], new_perms) \
+            and np.array_equal(staged["base"], self.cur)
+        for key, params in self.trees().items():
+            rows = staged["rows"].get(key) if fresh else None
+            if rows is not None:
+                tfm.commit_expert_prefetch(params, rows)
+            else:              # no stage, or a stale one: a live move
+                tfm.migrate_params_for_placement(params, self.cfg, self.cur,
+                                                 new_perms)
+        for e in self.engines:
+            e.placement = new_perms
+        self.cur = new_perms
+        self.pointer_swaps += fresh
+
+    def restore(self) -> None:
+        """Back to the starting placement, in no signal or counter."""
+        if not np.array_equal(self.cur, self.start):
+            for params in self.trees().values():
+                tfm.move_experts(params, self.cfg, self.cur, self.start)
+        self.cur, self.staged = self.start, None
+        for e in self.engines:
+            e.placement = self.start.copy()
+
+
 def serve_real_cluster(requests: List[Request], engines, *,
                        cluster_cfg: Optional[RealClusterConfig] = None,
                        metrics=None) -> SimResult:
@@ -144,7 +216,23 @@ def serve_real_cluster(requests: List[Request], engines, *,
     with cluster signals in ``.signals``. ``metrics`` (a
     ``core.metrics.StreamingMetrics``) is fed every non-error finish as
     it happens — same streaming-percentile hook as the simulator.
+
+    Adopting a placement moves the expert weights in place
+    (:class:`ExpertMigrator`). The reference's migration is functional and
+    leaves the caller's tree as it was; so that this one does too, the
+    weights are moved back to the starting placement, and every engine's
+    placement reset to it, when the call returns or raises. This is where
+    the copy differs from the reference.
     """
+    mover = ExpertMigrator(engines, engines[0].cfg)
+    try:
+        return _serve_real_cluster(requests, engines, cluster_cfg, metrics,
+                                   mover)
+    finally:
+        mover.restore()
+
+
+def _serve_real_cluster(requests, engines, cluster_cfg, metrics, mover):
     cc = cluster_cfg or RealClusterConfig()
     mcfg = engines[0].cfg
     n_engines = len(engines)
@@ -178,7 +266,6 @@ def serve_real_cluster(requests: List[Request], engines, *,
     pending = sorted(requests, key=lambda r: (r.arrival_time, r.req_id))
     now, rounds, migrations = 0.0, 0, 0
     kv_peak = 0.0
-    cur_perms = np.asarray(engines[0].placement)
 
     # ---- fault-tolerance state -------------------------------------------
     injector = FaultInjector(cc.fault_plan) if cc.fault_plan else None
@@ -223,61 +310,8 @@ def serve_real_cluster(requests: List[Request], engines, *,
     # stays physical); the controller wires table/scheduler membership only
     ec = ElasticController(table, sched, coordinator=None)
 
-    staged: Optional[Dict] = None      # double-buffered prefetch state
-    pointer_swaps = 0                  # placements adopted without migrating
-
-    def stage_prefetch(plan, target_perms) -> None:
-        """``coord.on_prefetch``: start the asynchronous weight copy — build
-        the params tree every holder will need under the staged placement,
-        next to (not in place of) the live tree. The serving path keeps
-        using the old buffer; :func:`apply_placement` pointer-swaps once
-        the coordinator's modeled transfer lands."""
-        nonlocal staged
-        del plan
-        from repro_torch.models.transformer import stage_expert_prefetch
-        target = np.asarray(target_perms)
-        bufs: Dict[int, object] = {}
-        for e in engines:
-            holder = getattr(e, "runner", e)
-            if id(holder) not in bufs:
-                bufs[id(holder)] = stage_expert_prefetch(
-                    holder.params, mcfg, cur_perms, target)
-        staged = {"perms": target, "base": cur_perms.copy(), "params": bufs}
-
-    def apply_placement(new_perms: np.ndarray) -> None:
-        """Adopting a placement means MOVING the weights: permute every
-        param holder's stacked expert weights (once per holder — paged
-        engines may share one runner), then hand engines the new table.
-        When a staged prefetch buffer matches the target (and was built
-        against the placement still serving), adoption is a pointer swap."""
-        nonlocal cur_perms, staged, pointer_swaps
-        from repro_torch.models.transformer import migrate_params_for_placement
-        if staged is not None and np.array_equal(staged["perms"], new_perms) \
-                and np.array_equal(staged["base"], cur_perms):
-            for e in engines:
-                holder = getattr(e, "runner", e)
-                buf = staged["params"].get(id(holder))
-                holder.params = buf if buf is not None else \
-                    migrate_params_for_placement(
-                        holder.params, mcfg, cur_perms, new_perms)
-                e.placement = new_perms
-            cur_perms = new_perms
-            staged = None
-            pointer_swaps += 1
-            return
-        staged = None              # stale buffer: fall back to a live move
-        seen = set()
-        for e in engines:
-            holder = getattr(e, "runner", e)   # runner (paged) or engine
-            if id(holder) not in seen:
-                seen.add(id(holder))
-                holder.params = migrate_params_for_placement(
-                    holder.params, mcfg, cur_perms, new_perms)
-            e.placement = new_perms
-        cur_perms = new_perms
-
     if coord is not None and cc.prefetch:
-        coord.on_prefetch = stage_prefetch
+        coord.on_prefetch = lambda plan, target: mover.stage(target)
 
     def report_trace(e) -> None:
         # delta-based prefix digests: ship a full summary only when the
@@ -462,8 +496,8 @@ def serve_real_cluster(requests: List[Request], engines, *,
             if coord.poll_prefetch(now):
                 migrations += 1    # a flip is still a placement adoption
             perms = np.asarray(coord.placement.permutations())
-            if not np.array_equal(perms, cur_perms):
-                apply_placement(perms)
+            if not np.array_equal(perms, mover.cur):
+                mover.adopt(perms)
             if coord._last_rank_load.sum() > 0:
                 for e in engines:
                     e.moe_pressure = coord.engine_moe_pressure(e.engine_id)
@@ -597,9 +631,9 @@ def serve_real_cluster(requests: List[Request], engines, *,
                                         and r.state is RequestState.FINISHED
                                         and not r.error)
                        for e in engines},
-        # placements adopted by pointer swap (prefetched double buffer)
-        # instead of a serving-path weight move
-        "prefetch_pointer_swaps": pointer_swaps,
+        # placements adopted by committing a staged prefetch (the
+        # reference's pointer swap) instead of a serving-path weight move
+        "prefetch_pointer_swaps": mover.pointer_swaps,
     }
     if coord is not None:
         res.signals.update(coord.placement_signals())

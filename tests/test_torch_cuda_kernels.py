@@ -46,7 +46,8 @@ def _block_tables(cuda, B, P, ps, NB, seed):
 
 PAGED_SHAPES = [(2, 4, 4, 32, 16, 4), (3, 8, 2, 16, 8, 5), (4, 4, 1, 64, 32, 3),
                 (8, 32, 4, 128, 16, 64), (2, 16, 2, 256, 8, 6),
-                (2, 32, 1, 64, 16, 4)]         # G = 32: the CUDA cores
+                (2, 32, 1, 64, 16, 4),         # G = 32: the CUDA cores
+                (8, 40, 8, 128, 16, 64)]       # llama4: G = 5
 
 
 def _decode_tc(dtype, hd, G):
@@ -209,7 +210,9 @@ def _tc_route(dtype, D, F):
     (8, 8, 128, 2048, 768), (8, 8, 128, 768, 2048),     # serving decode
     (256, 8, 128, 2048, 768), (256, 8, 128, 768, 2048),  # serving prefill
     (8, 8, 128, 256, 96), (64, 2, 8, 64, 40), (700, 8, 16, 128, 200),
-    (3, 1, 4, 72, 130)])                    # F % 8 != 0: the CUDA cores
+    (3, 1, 4, 72, 130),                     # F % 8 != 0: the CUDA cores
+    (8, 1, 128, 5120, 8192), (8, 1, 128, 8192, 5120),     # llama4 decode
+    (512, 1, 128, 5120, 8192), (512, 1, 128, 8192, 5120)])  # and prefill
 def test_moe_gmm_ragged_kernel(cuda, dtype, T, K, E, D, F):
     from repro_torch.kernels.moe_dispatch import (pick_row_block,
                                                   ragged_dispatch)
@@ -240,7 +243,8 @@ def test_moe_gmm_ragged_kernel(cuda, dtype, T, K, E, D, F):
 
 FLASH_SHAPES = [(4, 4, 4, 64, 512), (4, 8, 2, 128, 300),
                 (8, 32, 4, 128, 1024), (4, 16, 2, 256, 129), (4, 8, 8, 32, 5),
-                (4, 32, 1, 64, 100)]           # G = 32: the CUDA cores
+                (4, 32, 1, 64, 100),           # G = 32: the CUDA cores
+                (8, 40, 8, 128, 1024)]         # llama4: G = 5
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -441,7 +445,9 @@ def test_decode_long_context(cuda, dtype, kernel):
     (128, 71, 768, 2048),
     (16, 71, 256, 96),         # C=71 at a small width
     (4, 200, 256, 136),        # C > 128: two row tiles of one panel
-    (5, 13, 37, 131), (3, 33, 70, 9), (2, 1, 8, 1)])   # odd C, D and F
+    (5, 13, 37, 131), (3, 33, 70, 9), (2, 1, 8, 1),    # odd C, D and F
+    (128, 4, 5120, 8192), (128, 4, 8192, 5120),  # llama4: decode regroup
+    (128, 5, 5120, 8192), (128, 5, 8192, 5120)])  # a 512-token prefill
 def test_moe_gmm_kernel(cuda, dtype, E, C, D, F):
     from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_plain
     g = torch.Generator(device=cuda).manual_seed(8)

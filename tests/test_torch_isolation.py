@@ -37,9 +37,13 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "import repro_torch.launch.serve, repro_torch.launch.stress\n"
         "import repro_torch.examples.serve_moe\n"
         "import repro_torch.examples.serve_moe_paged\n"
+        "import repro_torch.examples.placement_demo\n"
+        "import repro_torch.configs.llama4_maverick_400b_a17b\n"
         "from repro_torch.configs import get_config, get_smoke_config\n"
         "get_config('qwen3-moe-30b-a3b'), "
         "get_smoke_config('qwen3-moe-30b-a3b')\n"
+        "get_config('llama4-maverick-400b-a17b'), "
+        "get_smoke_config('llama4-maverick-400b-a17b')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'msgpack', 'zstandard'))\n"
         "print(bad)\n"
@@ -64,7 +68,9 @@ def test_no_source_file_imports_jax_or_the_reference():
 def test_config_registry_loads_the_ports_own_configs():
     from repro_torch.configs import ModelConfig, get_config, get_smoke_config
     for cfg in (get_config("qwen3-moe-30b-a3b"),
-                get_smoke_config("qwen3-moe-30b-a3b")):
+                get_smoke_config("qwen3-moe-30b-a3b"),
+                get_config("llama4-maverick-400b-a17b"),
+                get_smoke_config("llama4-maverick-400b-a17b")):
         assert type(cfg) is ModelConfig
         assert type(cfg).__module__ == "repro_torch.configs.base"
 

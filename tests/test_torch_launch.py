@@ -81,3 +81,15 @@ def test_example_modes_hold_their_asserts_on_the_float32_twin(mode, capsys):
     assert ("bit-identical outputs: True" in out if mode == "shared_prefix"
             else "bit-exact vs fault-free: True" in out)
 
+
+
+def test_placement_demo_prints_the_reference_output():
+    env = dict(os.environ, PYTHONPATH=str(SRC), JAX_PLATFORMS="cpu")
+    j = subprocess.run([sys.executable, "examples/placement_demo.py"],
+                       env=env, capture_output=True, text=True, timeout=300,
+                       cwd=SRC.parent)
+    t = run("repro_torch.examples.placement_demo")
+    assert j.returncode == 0, j.stderr
+    assert t.returncode == 0, t.stderr
+    assert t.stdout == j.stdout
+    assert "MINLP reference" in t.stdout and "calibration:" in t.stdout

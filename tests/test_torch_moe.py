@@ -186,3 +186,159 @@ def test_source_stats_on_unsorted_ids_match_reference(tiny_model, skew,
                                       err_msg=k)
     n = T if mask is None else int(mask.sum())
     assert int(st["source_expert"].sum()) == n * K
+
+
+# ------------------------------------------------------------ migration
+def _models():
+    """The qwen3 test model (two super-blocks of one MoE layer) and the
+    llama4 one (one super-block: a dense layer, then a MoE layer with a
+    shared expert), each as (reference cfg, reference params, port cfg)."""
+    from repro.configs import get_smoke_config
+    from repro.configs.base import reduced
+    from repro.models import build_model
+    from repro_torch.bridge import config_from_dict
+    out = {}
+    for arch in ("qwen3-moe-30b-a3b", "llama4-maverick-400b-a17b"):
+        cfg = reduced(get_smoke_config(arch), n_layers=2)
+        out[arch] = (cfg, build_model(cfg).init(jax.random.PRNGKey(0)),
+                     config_from_dict(dataclasses.asdict(cfg)))
+    return out
+
+
+@pytest.fixture(scope="module")
+def models():
+    return _models()
+
+
+def _perms(kind, n_moe, E, seed):
+    rng = np.random.default_rng(seed)
+    ident = np.tile(np.arange(E), (n_moe, 1))
+    if kind == "identity":
+        return ident, ident.copy()
+    if kind == "full_cycle":           # every expert one slot on
+        return ident, np.roll(ident, 1, axis=1)
+    if kind == "one_swap":
+        new = ident.copy()
+        new[:, [1, E - 2]] = new[:, [E - 2, 1]]
+        return ident, new
+    return (np.stack([rng.permutation(E) for _ in range(n_moe)]),
+            np.stack([rng.permutation(E) for _ in range(n_moe)]))
+
+
+def _leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def _assert_tree_equal(t, j):
+    jl = dict(_leaves(jax.tree.map(np.asarray, j)))
+    for name, leaf in _leaves(t):
+        np.testing.assert_array_equal(_np(leaf), np.asarray(jl[name],
+                                                            np.float32),
+                                      err_msg=name)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b",
+                                  "llama4-maverick-400b-a17b"])
+@pytest.mark.parametrize("kind", ["random", "full_cycle", "one_swap",
+                                  "identity"])
+def test_migration_in_place_equals_reference(models, arch, kind):
+    """The port moves only the moved expert rows, in the live leaves; the
+    result is the reference's functional migration bit for bit, and the
+    router and the shared expert are not touched."""
+    from repro.models import transformer as jtfm
+    from repro_torch.models import transformer as ttfm
+    cfg, jp, tcfg = models[arch]
+    old, new = _perms(kind, cfg.n_moe_layers, cfg.moe.n_experts, seed=7)
+    # the weights laid out under ``old``, by the reference
+    start = jtfm.migrate_params_for_placement(jp, cfg, np.tile(
+        np.arange(cfg.moe.n_experts), (cfg.n_moe_layers, 1)), old)
+    tp = params_from_numpy(start, device="cpu")
+    ptrs = {k: v.data_ptr() for k, v in _leaves(tp)}
+    keep = {k: v.clone() for k, v in _leaves(tp)
+            if "shared" in k or "router" in k}
+    out = ttfm.migrate_params_for_placement(tp, tcfg, old, new)
+    assert out is tp
+    _assert_tree_equal(tp, jtfm.migrate_params_for_placement(start, cfg, old,
+                                                             new))
+    assert {k: v.data_ptr() for k, v in _leaves(tp)} == ptrs
+    for k, v in _leaves(tp):
+        if k in keep:
+            assert torch.equal(v, keep[k]), k
+    moved = int((old != new).sum())
+    assert ttfm.move_experts(tp, tcfg, new, old) == moved
+    _assert_tree_equal(tp, start)
+
+
+class _Engine:
+    """What the cluster's migrator reads of an engine: its placement and
+    its weights, held directly (a dense engine) or by a runner (a paged
+    one)."""
+
+    def __init__(self, params=None, runner=None, placement=None):
+        if runner is not None:
+            self.runner = runner
+        else:
+            self.params = params
+        self.placement = placement
+
+
+def test_stage_then_commit_equals_a_live_move(models):
+    from repro_torch.models import transformer as ttfm
+    cfg, jp, tcfg = models["llama4-maverick-400b-a17b"]
+    old, new = _perms("random", cfg.n_moe_layers, cfg.moe.n_experts, seed=3)
+    live = params_from_numpy(jp, device="cpu")
+    staged = params_from_numpy(jp, device="cpu")
+    stage = ttfm.stage_expert_prefetch(staged, tcfg, old, new)
+    moved = int((old != new).sum())
+    # the stage holds the moved rows alone and leaves the tree as it was
+    assert sum(r.shape[0] for *_, rows in stage for r in rows.values()) == \
+        3 * moved
+    _assert_tree_equal(staged, jp)
+    assert ttfm.commit_expert_prefetch(staged, stage) == moved
+    ttfm.migrate_params_for_placement(live, tcfg, old, new)
+    for (name, a), (_, b) in zip(_leaves(staged), _leaves(live)):
+        assert torch.equal(a, b), name
+
+
+def test_migrator_moves_each_tree_once_and_restores(models):
+    """Three engines: two dense ones that share one tree and a paged one
+    on a runner with its own copy. A stage that went stale (another
+    placement was adopted first) falls back to a live move; a fresh one is
+    committed and counts as a pointer swap; ``restore`` brings both trees
+    and every engine's placement back to the start."""
+    from repro.models import transformer as jtfm
+    from repro_torch.serving.real_cluster import ExpertMigrator
+    cfg, jp, tcfg = models["qwen3-moe-30b-a3b"]
+    n, E = cfg.n_moe_layers, cfg.moe.n_experts
+    start = np.tile(np.arange(E), (n, 1))
+    a, b, c = (_perms("random", n, E, seed=s)[1] for s in (1, 2, 3))
+    shared = params_from_numpy(jp, device="cpu")
+    own = params_from_numpy(jp, device="cpu")
+    runner = type("Runner", (), {"params": own})()
+    engines = [_Engine(params=shared, placement=start),
+               _Engine(params=shared, placement=start),
+               _Engine(runner=runner, placement=start)]
+    mover = ExpertMigrator(engines, tcfg)
+    assert len(mover.trees()) == 2
+    mover.stage(a)                     # stale once b is adopted instead
+    mover.adopt(b)
+    ref = jtfm.migrate_params_for_placement(jp, cfg, start, b)
+    _assert_tree_equal(shared, ref)
+    _assert_tree_equal(own, ref)
+    assert mover.pointer_swaps == 0 and mover.staged is None
+    mover.stage(c)
+    _assert_tree_equal(shared, ref)    # staging leaves the weights alone
+    mover.adopt(c)
+    ref = jtfm.migrate_params_for_placement(ref, cfg, b, c)
+    _assert_tree_equal(shared, ref)
+    _assert_tree_equal(own, ref)
+    assert mover.pointer_swaps == 1
+    assert all(e.placement is c for e in engines)
+    mover.restore()
+    _assert_tree_equal(shared, jp)
+    _assert_tree_equal(own, jp)
+    assert all(np.array_equal(e.placement, start) for e in engines)
