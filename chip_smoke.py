@@ -80,17 +80,38 @@
    phase llama4's float32 twin through ``serve_real_cluster`` card against
    CPU, with uncalibrated and with predictive placement and staged
    prefetch;
-10. prints a ``kernels`` JSON line (all seven kernels), then as its last
+10. the ``dense_families`` phase, each family's weights freed before the
+   next: qwen3-8b at full width and depth (36 layers) through
+   ``serve_real_cluster`` over two paged engines on bf16 pages, on int8
+   pages, and over two dense engines (8 requests of 256 to 1024 prompt
+   tokens, 32 new each); gemma3-12b (48 layers, 5 local layers of window
+   1024 to 1 global, hd 256) and gemma2-2b (26 layers, softcaps 50 and 30,
+   hd 256) over two dense engines of 2048 tokens a slot (prompts of 900 to
+   1400 tokens that overflow gemma3's 1024-slot rings, 64 new), where
+   ``flash_decode`` takes the CUDA cores (4 of gemma3's requests, 32 new
+   tokens each, are served again under the profiler); qwen1.5-32b at full
+   width and 32
+   of its 64 layers through ``build_model``'s entry points (8 prompts of
+   1024 tokens, 32 decode steps) with a bf16 and an int8 cache, whose
+   logits must meet the reference's int8 bar, then over two dense engines;
+   and the four families' float32 twins, card against CPU, over dense
+   engines and, for the two qwens, int8 pages. Each serve prints its
+   Algorithm-1 decisions, launches, routes and peak memory. The kernel
+   phase holds ``paged_decode`` at G = 4 and G = 1, ``flash_decode`` with
+   a window and a softcap, at hd 256 and on int8 caches, and the dense
+   int8 write at these families' shapes;
+11. prints a ``kernels`` JSON line (all seven kernels), then as its last
    line ``{"ok": true, "device": {...}}``.
 
 Adopting a placement moves the experts' weights in place; each serve
 leaves the caller's weights as they were.
 
 The kernel launch counters are set to 0 just before each serve of steps 4,
-6, 7, 9 and of each scenario slice of step 8, and read just after; each serve
-fails if a kernel of its path was not launched, or if a bf16 launch of an
-expert GEMM or of a decode kernel at full width took the CUDA cores instead
-of the tensor cores.
+6, 7, 9 and 10 and of each scenario slice of step 8, and read just after;
+each serve fails if a kernel of its path was not launched, or if a bf16
+launch of an expert GEMM or of a decode kernel at full width took the CUDA
+cores instead of the tensor cores (at hd 256, which
+``decode_route.tc_eligible`` leaves to the CUDA cores, the reverse).
 
 Any failure raises, and the script exits non-zero. It never runs on the
 CPU: without a CUDA device it exits with an error before doing anything.
@@ -162,12 +183,16 @@ class Timer:
         whatever kernels it picks), the flush left out: here the flush is a
         bitwise_not, a kernel no timed function launches. The profiler now
         and then drops an event, the events of one call, or every event of
-        a profile: a profile is taken (up to four times) until each kernel
+        a profile: a profile is taken (up to six times) until each kernel
         shows its launches per call in all the calls but one (launches per
         call: its count over the calls, rounded; a kernel a library call
         launched twice a call once showed 18 events in 10 calls), and, for
-        a library call, until two such profiles agree on its kernels, so
-        that one the profiler missed entirely shows. A
+        a library call, until two profiles agree on its kernels, so that one
+        the profiler missed entirely shows. For a library call only the
+        kernels steady in a profile (their launches per call in all calls
+        but one) count: a stray event seen once, in one profile, is no
+        kernel of the call and must not keep later profiles from agreeing
+        (a bincount's profiles once never agreed for that). A
         kernel's time per call is its mean over its events times its
         launches per call. Returns (ms, {kernel: ms})."""
         from torch.autograd import DeviceType
@@ -176,7 +201,7 @@ class Timer:
             fn()
         torch.cuda.synchronize()
         seen, complete = set(), 0
-        for _ in range(4):
+        for _ in range(6):
             parts, counts = {}, {}
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(self.iters):
@@ -203,17 +228,21 @@ class Timer:
                 if whole and len(parts) == n_kernels:
                     break
                 continue
-            if not set(counts) <= seen:   # a kernel no earlier profile saw
-                seen |= set(counts)
+            steady = {k for k, n in counts.items()
+                      if n >= per_call[k] * (self.iters - 1)}
+            parts = {k: parts[k] for k in steady}
+            counts = {k: counts[k] for k in steady}
+            if not steady <= seen:        # a kernel no earlier profile saw
+                seen |= steady
                 complete = 0
-            complete += whole and set(counts) == seen
+            complete += bool(steady) and steady == seen
             if complete == 2:
                 break
         else:
             raise AssertionError(f"profiler did not see the kernels of "
                                  f"{match or 'the call'} in {self.iters} "
-                                 f"calls (less one event) in four tries: "
-                                 f"{counts}")
+                                 f"calls (less one event) in six tries: "
+                                 f"{counts}, kernels seen {sorted(seen)}")
         per_call = {k: parts[k] / counts[k] * per_call[k] for k in parts}
         return sum(per_call.values()), per_call
 
@@ -254,8 +283,9 @@ def check_paged_decode(timer, dtype, int8_pages=False, long_ctx=False,
                        Hq=32, Hkv=4):
     """The serving shape (8 requests up to 1024 tokens, lane 0 empty), or a
     32768-token context over a pool of 16385 pages (0.54 GB in bf16).
-    Heads: qwen3's 32/4 (G = 8), or llama4's 40/8 (G = 5)."""
-    from repro_torch.kernels.decode_route import row_rel_err
+    Heads: qwen3-moe's 32/4 (G = 8), llama4's 40/8 (G = 5), qwen3-8b's
+    32/8 (G = 4) or qwen1.5-32b's 40/40 (G = 1)."""
+    from repro_torch.kernels.decode_route import row_rel_err, tc_eligible
     from repro_torch.kernels.kv_pack import pack_kv_plain
     from repro_torch.kernels.paged_decode import (paged_decode,
                                                   paged_decode_plain)
@@ -312,7 +342,8 @@ def check_paged_decode(timer, dtype, int8_pages=False, long_ctx=False,
             "plain_ms": timer(lambda: paged_decode_plain(
                 q, kp, vp, bt, ctx_t, *scales.values())),
             "bound": bound_ms(nbytes, ops, str(dtype).split(".")[1]),
-            "library_ms": None, "route": route}
+            "library_ms": None, "route": route,
+            "tc_expected": tc_eligible(dtype, hd, Hq // Hkv)}
 
 
 def dispatch_layout(T, K, E, D, dtype, g):
@@ -369,36 +400,54 @@ def check_gmm(timer, dtype, T, D, F, which, K=8):
             **lib, "route": route}
 
 
-def check_flash_decode(timer, dtype, long_ctx=False):
-    """The dense ring cache of a RealModelEngine at full width: 8 slots of
-    1024, rows at assorted write positions (one wrapped past the end of
-    the ring, one fully masked: exact zeros); or 8 rings of 32768 slots,
-    most of them full."""
+def check_flash_decode(timer, dtype, long_ctx=False, Hq=32, Hkv=4, hd=128,
+                       L=1024, window=0, cap=0.0, int8=False, which=""):
+    """The dense ring cache of a RealModelEngine at full width: 8 rows of L
+    slots at assorted write positions (one wrapped past the end of the
+    ring, one fully masked: exact zeros); or, ``long_ctx``, 8 rings of
+    32768 slots, most of them full. Heads qwen3-moe's 32/4 by default;
+    ``window`` and ``cap`` add the sliding window and the logit softcap,
+    ``int8`` an int8 cache with f32 scales. The library yardstick, SDPA
+    with a boolean mask, only where it computes the same function: no
+    softcap, no int8."""
     import torch.nn.functional as F
-    from repro_torch.kernels.decode_route import row_rel_err
+    from repro_torch.kernels.decode_route import row_rel_err, tc_eligible
     from repro_torch.kernels.flash_decode import (flash_decode,
                                                   flash_decode_plain)
+    from repro_torch.kernels.kv_pack import pack_kv_plain
     from repro_torch.models.attention import ring_positions
     g = torch.Generator(device="cuda").manual_seed(6)
-    B, Hq, Hkv, hd = 8, 32, 4, 128
+    B = 8
     if long_ctx:
         L = 32768
         write = [32767, 40000, 65535, 32767, 50000, 32767, 20000, 32767]
     else:
-        L = 1024
-        write = [99, 1500, 255, 600, 931, 1023, 0, 400]     # row 1 wrapped
+        write = [w * L // 1024
+                 for w in (99, 1500, 255, 600, 931, 1023, 0, 400)]
     q = torch.randn(B, Hq, hd, generator=g, device="cuda").to(dtype)
-    kc = torch.randn(B, L, Hkv, hd, generator=g, device="cuda").to(dtype)
-    vc = torch.randn(B, L, Hkv, hd, generator=g, device="cuda").to(dtype)
+    scales = {}
+    if int8:      # drawn a head at a time: the f32 draw is 1/Hkv of it
+        kc, vc = (torch.empty(B, L, Hkv, hd, dtype=torch.int8, device="cuda")
+                  for _ in range(2))
+        ks, vs = (torch.empty(B, L, Hkv, device="cuda") for _ in range(2))
+        for h in range(Hkv):
+            for c, sc in ((kc, ks), (vc, vs)):
+                c[:, :, h], sc[:, :, h] = pack_kv_plain(torch.randn(
+                    B, L, hd, generator=g, device="cuda"))
+        scales = dict(k_scale=ks, v_scale=vs)
+    else:
+        kc = torch.randn(B, L, Hkv, hd, generator=g, device="cuda").to(dtype)
+        vc = torch.randn(B, L, Hkv, hd, generator=g, device="cuda").to(dtype)
     write = torch.tensor(write, device="cuda")
     k_pos = ring_positions(write, L)
     q_pos = write.to(torch.int32)
     if not long_ctx:
         k_pos[6] = -1                                  # row 6: no valid slot
+    terms = dict(window=window, softcap=cap, **scales)
     tc_before = flash_decode.tc_launches
-    out = flash_decode(q, kc, vc, k_pos, q_pos)
+    out = flash_decode(q, kc, vc, k_pos, q_pos, **terms)
     route = route_name(flash_decode.tc_launches - tc_before)
-    ref = flash_decode_plain(q, kc, vc, k_pos, q_pos)
+    ref = flash_decode_plain(q, kc, vc, k_pos, q_pos, **terms)
     torch.cuda.synchronize()
     err, rel = max_err(out, ref), row_rel_err(out, ref)
     if not torch.isfinite(out).all() or \
@@ -407,42 +456,98 @@ def check_flash_decode(timer, dtype, long_ctx=False):
                              "no valid slot that is not exactly zero")
     del ref
     valid = (k_pos >= 0) & (k_pos <= q_pos[:, None])
+    if window:
+        valid &= k_pos > q_pos[:, None] - window
     n_valid = int(valid.sum())
     item = q.element_size()
-    nbytes = 2 * q.numel() * item + n_valid * Hkv * 2 * hd * item \
+    # K and V of the valid slots (codes and scales on an int8 cache)
+    row_bytes = hd * kc.element_size() + (4 if int8 else 0)
+    nbytes = 2 * q.numel() * item + n_valid * Hkv * 2 * row_bytes \
         + k_pos.numel() * 4 + B * 4
     ops = 4.0 * n_valid * Hq * hd
-    # the library yardstick: SDPA on the same cache, heads-first copies and
-    # the boolean mask built outside the timed call
-    q4 = q[:, :, None].contiguous()                    # (B, Hq, 1, hd)
-    k4, v4 = (t.transpose(1, 2).contiguous() for t in (kc, vc))
-    mask = valid[:, None, None, :]
     lib = lib_dev = None
-    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        q4, k4, v4, attn_mask=mask, enable_gqa=True)
-    try:
-        sdpa()
-    except (TypeError, RuntimeError) as exc:
-        log(f"library: scaled_dot_product_attention with enable_gqa not "
-            f"timed ({exc})")
-    else:
-        # event time as for every library call, and device time, to set
-        # against the kernel's own device time without either's host work
-        lib = timer(sdpa)
-        lib_dev = dict(zip(("library_device_ms", "library_device_parts"),
-                           timer.device(sdpa)))
+    if not (cap or int8):
+        # SDPA on the same cache, heads-first copies and the boolean mask
+        # built outside the timed call
+        q4 = q[:, :, None].contiguous()                # (B, Hq, 1, hd)
+        k4, v4 = (t.transpose(1, 2).contiguous() for t in (kc, vc))
+        mask = valid[:, None, None, :]
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q4, k4, v4, attn_mask=mask, enable_gqa=True)
+        try:
+            sdpa()
+        except (TypeError, RuntimeError) as exc:
+            log(f"library: scaled_dot_product_attention with enable_gqa "
+                f"not timed ({exc})")
+        else:
+            # event time as for every library call, and device time, to
+            # set against the kernel's own device time without either's
+            # host work
+            lib = timer(sdpa)
+            lib_dev = dict(zip(("library_device_ms", "library_device_parts"),
+                               timer.device(sdpa)))
     what = (f"long context: L={L} ring, write positions {write.tolist()}"
             if long_ctx else f"L={L} ring, write positions "
             f"{write.tolist()}, row 6 masked")
-    run = lambda: flash_decode(q, kc, vc, k_pos, q_pos)  # noqa: E731
-    return {"shape": f"B={B} Hq={Hq} Hkv={Hkv} hd={hd} {what}, "
-                     f"{n_valid} valid slots",
+    extra = ", ".join(x for x in (
+        f"window {window}" if window else "", f"softcap {cap:g}" if cap
+        else "", "int8 cache + f32 scales" if int8 else "") if x)
+    run = lambda: flash_decode(q, kc, vc, k_pos, q_pos, **terms)  # noqa
+    return {"shape": f"{which}B={B} Hq={Hq} Hkv={Hkv} hd={hd} {what}, "
+                     f"{n_valid} valid slots" + (f", {extra}" if extra
+                                                 else ""),
             "err": err, "row_rel_err": rel,
             "ms": timer(run), **device_times(timer, run),
             "plain_ms": timer(lambda: flash_decode_plain(q, kc, vc, k_pos,
-                                                         q_pos)),
+                                                         q_pos, **terms)),
             "bound": bound_ms(nbytes, ops, str(dtype).split(".")[1]),
-            "library_ms": lib, **(lib_dev or {}), "route": route}
+            "library_ms": lib, **(lib_dev or {}), "route": route,
+            "tc_expected": tc_eligible(dtype, hd, Hq // Hkv)}
+
+
+def check_pack_ring(timer, dtype, B, S, L, Hkv, which):
+    """The int8 write of a dense ring cache (``pack_kv_into_ring``: one
+    launch for K and V of a layer) at qwen1.5-32b's width (40 KV heads of
+    128), bit for bit against the plain twin on the whole cache: a decode
+    step of 8 rows at assorted positions (two past the ring's end), or a
+    prompt of S tokens written at slots [0, S)."""
+    from repro_torch.kernels.kv_pack import (pack_kv_into_pages_plain,
+                                             pack_kv_into_ring)
+    g = torch.Generator(device="cuda").manual_seed(10)
+    hd = 128
+    if S == 1:
+        positions = torch.tensor([0, 1, 255, 1023, L - 1, L, 3 * L + 5, 700],
+                                 device="cuda")[:B, None]
+    else:
+        positions = torch.arange(S, device="cuda")[None].repeat(B, 1)
+    positions = positions.to(torch.int32)
+    k, v = ((torch.randn(B, S, Hkv, hd, generator=g, device="cuda")
+             * torch.rand(B, S, Hkv, 1, generator=g, device="cuda") * 8)
+            .to(dtype) for _ in range(2))
+    caches = [torch.randint(-127, 128, (B, L, Hkv, hd), generator=g,
+                            device="cuda", dtype=torch.int8)
+              for _ in range(2)] + \
+        [torch.rand(B, L, Hkv, generator=g, device="cuda") for _ in range(2)]
+    plain = [t.clone() for t in caches]
+    bt = torch.arange(B, dtype=torch.int32, device="cuda")[:, None]
+    valid = torch.ones(B, S, dtype=torch.bool, device="cuda")
+    pack_kv_into_ring(k, v, *caches, positions)
+    pack_kv_into_pages_plain(k, v, *plain, bt, positions, valid)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(caches, plain)):
+        raise AssertionError(f"pack_kv_into_ring [{dtype}] {which}: codes "
+                             "or scales differ from the plain twin")
+    n = B * S * Hkv
+    nbytes = 2 * n * (hd * k.element_size() + hd + 4) + 4 * positions.numel()
+    run = lambda: pack_kv_into_ring(k, v, *caches, positions)  # noqa: E731
+    return {"shape": f"{which}: K and V ({B}, {S}, {Hkv}, {hd}) into an "
+                     f"int8 ring cache of {L} slots (one launch)",
+            "err": 0.0, "ms": timer(run),
+            **device_times(timer, run, ("pack_kv_kernel",), 1),
+            "plain_ms": timer(lambda: pack_kv_into_pages_plain(
+                k, v, *plain, bt, positions, valid)),
+            "bound": bound_ms(nbytes, 2 * 4.0 * n * hd, "float32"),
+            "library_ms": None}
 
 
 def check_padded_gmm(timer, dtype, E, C, D, F, which):
@@ -667,10 +772,13 @@ def kernel_phase():
             raise AssertionError(f"{kname} [{dt}] disagrees with its plain "
                                  f"version: max_abs_err {r['err']} (tolerance "
                                  f"{tol}){rel}")
-        if kname.endswith("_decode") and dt.startswith("bfloat16") \
-                and r["route"] == "CUDA cores":
+        # bf16 takes the tensor cores wherever tc_eligible admits the
+        # shape (hd 256 does not), and nothing else does
+        if kname.endswith("_decode") and \
+                (r["route"] == "tensor cores") != r["tc_expected"]:
             raise AssertionError(f"{kname} [{dt}] {r['shape']}: took the "
-                                 "CUDA cores at a full-width bf16 shape")
+                                 f"{r['route']} (tensor cores expected: "
+                                 f"{r['tc_expected']})")
         results[kname].append((dt, r))
 
     for dtype in (torch.bfloat16, torch.float32):
@@ -720,6 +828,7 @@ def kernel_phase():
         record("source_expert_count", "int32",
                check_stats(timer, T, K))
     llama4_kernel_rows(timer, record)
+    dense_families_kernel_rows(timer, record)
     return results
 
 
@@ -753,6 +862,44 @@ def llama4_kernel_rows(timer, record):
             torch.cuda.empty_cache()
 
 
+def dense_families_kernel_rows(timer, record):
+    """The decode kernels and the dense int8 write at the dense families'
+    shapes: ``paged_decode`` at qwen3-8b's 32/8 heads (G = 4) and
+    qwen1.5-32b's 40/40 (G = 1), on fp and int8 pages; ``flash_decode``
+    with gemma2's window and softcap at hd 256 over a cache longer than the
+    window (a serve's ring of L = window slots never masks), at gemma3's
+    hd 256 and G = 2, and on int8 caches at G = 4 and G = 1 (also at a
+    32768-slot context in bf16); the int8 write of a dense ring cache at
+    qwen1.5's 40 KV heads."""
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype).split(".")[1]
+        heads = ((32, 8, "qwen3-8b"), (40, 40, "qwen1.5-32b"))
+        for Hq, Hkv, name in heads:
+            for int8 in (False, True):
+                r = check_paged_decode(timer, dtype, int8_pages=int8, Hq=Hq,
+                                       Hkv=Hkv)
+                r["shape"] = f"{name}: " + r["shape"]
+                record("paged_decode", dt + ("/int8" if int8 else ""), r)
+        record("flash_decode", dt + "/window+softcap", check_flash_decode(
+            timer, dtype, Hq=8, Hkv=4, hd=256, L=8192, window=4096,
+            cap=50.0, which="gemma2 heads: "))
+        record("flash_decode", dt, check_flash_decode(
+            timer, dtype, Hq=16, Hkv=8, hd=256, L=2048,
+            which="gemma3 heads: "))
+        for Hq, Hkv, name in heads:
+            record("flash_decode", dt + "/int8", check_flash_decode(
+                timer, dtype, Hq=Hq, Hkv=Hkv, int8=True, which=f"{name}: "))
+            if dtype == torch.bfloat16:
+                record("flash_decode", dt + "/int8", check_flash_decode(
+                    timer, dtype, long_ctx=True, Hq=Hq, Hkv=Hkv, int8=True,
+                    which=f"{name}: "))
+                torch.cuda.empty_cache()
+        for B, S, which in ((8, 1, "qwen1.5-32b decode"),
+                            (1, 1024, "qwen1.5-32b prompt")):
+            record("pack_kv", dt + "/ring",
+                   check_pack_ring(timer, dtype, B, S, 2048, 40, which))
+
+
 # ------------------------------------------------------------------ serving
 def reset_counts(counters):
     """Every launch counter of ``counters`` (and the tensor-core counters
@@ -771,12 +918,20 @@ def read_counts(counters):
              if hasattr(fn, "tc_launches")})
 
 
-def check_routes(phase, launches, tc, mains):
+def check_routes(phase, launches, tc, mains, cuda_cores=()):
     """At full width in bf16 every launch of an expert GEMM or a decode
     kernel takes the tensor cores: each kernel of ``mains`` (the path's GEMM
-    and decode kernel) launched there, none on the CUDA cores."""
+    and decode kernel) launched there, none on the CUDA cores. The kernels
+    of ``cuda_cores`` (the decode kernel at hd 256, which
+    ``decode_route.tc_eligible`` leaves to the CUDA cores) launched, and
+    never on the tensor cores."""
+    for name in cuda_cores:
+        if launches[name] <= 0 or tc[name]:
+            raise AssertionError(f"{phase}: {name} launched {launches[name]} "
+                                 f"times, {tc[name]} on the tensor cores; "
+                                 "expected the CUDA cores only")
     for name, n_tc in tc.items():
-        if launches[name] - n_tc:
+        if name not in cuda_cores and launches[name] - n_tc:
             raise AssertionError(f"{phase}: {name} took the CUDA cores "
                                  f"{launches[name] - n_tc} times at full "
                                  f"width in bf16")
@@ -1331,6 +1486,7 @@ def cluster_phase(args, cfg, params, counters):
     forwards = [0]
 
     def again():
+        forwards[0] = 0
         res, _, _ = serve_cluster(
             cfg, params, ecfg, make_requests(cfg, 16, 100, 900, new_tokens,
                                              seed=args.seed + 1, gap=0.1),
@@ -1339,12 +1495,32 @@ def cluster_phase(args, cfg, params, counters):
 
     restore = counted_forwards(tfm, forwards)
     try:
-        rows, _ = profiled("cluster", again)
+        profile_until_complete("cluster", again, lambda rows: (
+            profile_write_and_stats(rows, forwards[0] * cfg.n_layers,
+                                    forwards[0] * cfg.n_moe_layers)))
     finally:
         restore()
-    profile_write_and_stats(rows, forwards[0] * cfg.n_layers,
-                            forwards[0] * cfg.n_moe_layers)
     return launches, tc
+
+
+def profile_until_complete(label, serve, check, tries=3):
+    """``serve()`` under :func:`profiled` until ``check(rows)`` passes on
+    one profile, at most ``tries`` profiles. The profiler now and then loses
+    a block of events (on an H100, one profile of the int8 cluster serve
+    showed 1056 of its 1096 write kernels, which the launch counters showed
+    all 1096 times),
+    so a count check that fails is taken again on a new profile of a new
+    serve, and the last failure is raised. Returns the passing profile's
+    rows."""
+    for i in range(tries):
+        rows, _ = profiled(label, serve)
+        try:
+            check(rows)
+            return rows
+        except AssertionError as exc:
+            if i == tries - 1:
+                raise
+            log(f"profile {label}: {exc}; profiling a new serve")
 
 
 def profile_write_and_stats(rows, layer_steps, moe_steps, label="cluster"):
@@ -1919,25 +2095,31 @@ def llama4_serve_phase(args, counters):
                              chunk_buckets=(64, 128, 256, 512),
                              kv_dtype="int8", device="cuda")
     new_tokens = 32
-    reqs = make_requests(cfg, 16, 128, 1024, new_tokens, seed=args.seed + 3,
-                         gap=0.1)
     before = weight_fingerprint(params)
     adoptions, peak, forwards, got = [], [0], [0], {}
 
     def run():
+        # a new serve, counted afresh, each time the profile is taken
+        forwards[0] = 0
+        adoptions.clear()
+        reset_counts(counters)
+        reqs = make_requests(cfg, 16, 128, 1024, new_tokens,
+                             seed=args.seed + 3, gap=0.1)
         res, engines, wall = serve_cluster(
             cfg, params, ecfg, reqs, window_tokens=1024,
             placement_cfg=PlacementConfig.uncalibrated())
-        got.update(res=res, wall=wall)
+        got.update(res=res, wall=wall, reqs=reqs)
         return (f"{res.signals['rounds']} rounds, {forwards[0]} forward "
                 "passes")
 
     torch.cuda.reset_peak_memory_stats()
     migrate = timed_migrations(tfm, cfg, adoptions, peak)
     restore = counted_forwards(tfm, forwards)
-    reset_counts(counters)
     try:
-        rows, _ = profiled("llama4_serve", run)
+        profile_until_complete("llama4_serve", run, lambda rows: (
+            profile_write_and_stats(rows, forwards[0] * cfg.n_layers,
+                                    forwards[0] * cfg.n_moe_layers,
+                                    "llama4_serve")))
     finally:
         restore()
         tfm.migrate_params_for_placement = migrate
@@ -1945,7 +2127,7 @@ def llama4_serve_phase(args, counters):
     torch.cuda.synchronize()
     peak[0] = max(peak[0], torch.cuda.max_memory_allocated())
 
-    res, sig = got["res"], got["res"].signals
+    reqs, res, sig = got["reqs"], got["res"], got["res"].signals
     bad = [r.req_id for r in reqs if r.error or r.finish_time < 0
            or len(r.full_output_tokens) != new_tokens
            or not all(0 <= t < cfg.vocab_size for t in r.full_output_tokens)]
@@ -1977,8 +2159,6 @@ def llama4_serve_phase(args, counters):
                zip(before, weight_fingerprint(params))):
         raise AssertionError("llama4_serve: the serve changed the caller's "
                              "weights")
-    profile_write_and_stats(rows, forwards[0] * cfg.n_layers,
-                            forwards[0] * cfg.n_moe_layers, "llama4_serve")
     prompt = sum(r.prompt_len for r in reqs)
     gen_tok = sum(len(r.full_output_tokens) for r in reqs)
     log(f"llama4_serve: {len(reqs)}/{len(reqs)} requests arriving over "
@@ -2001,6 +2181,299 @@ def llama4_serve_phase(args, counters):
         f"(torch.cuda.max_memory_allocated); the caller's weights unchanged "
         f"after the serve (per-expert fingerprints equal)")
     return launches, tc
+
+
+# ------------------------------------------------------------ dense families
+DENSE_PAGED = dict(page_size=16, n_pages=1024, max_blocks_per_req=72,
+                   max_batch=8, token_budget=512,
+                   chunk_buckets=(64, 128, 256, 512))
+
+
+def init_family(cfg, seed, label):
+    """Random bf16 weights of ``cfg`` from ``seed`` on the card, logged."""
+    from repro_torch.models import transformer as tfm
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = tfm.init_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(seed),
+        device="cuda")
+    torch.cuda.synchronize()
+    log(f"dense_families: {label}: {cfg.n_layers} layers, d={cfg.d_model}, "
+        f"heads {cfg.n_heads}/{cfg.n_kv_heads} of hd={cfg.head_dim}, d_ff="
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}: "
+        f"{cfg.param_count() * 2 / 2**30:.2f} GiB by param_count(), "
+        f"{(torch.cuda.memory_allocated() - base) / 2**30:.2f} GiB "
+        f"allocated from seed {seed} in {time.perf_counter() - t0:.1f} s "
+        f"(init peak {(torch.cuda.max_memory_allocated() - base) / 2**30:.2f}"
+        f" GiB)")
+    return params
+
+
+def family_serve(label, cfg, reqs, counters, run, needed, mains=(),
+                 cuda_cores=()):
+    """One ``serve_real_cluster`` of the dense families, the counts set to 0
+    just before and read just after: every request finished with a full
+    in-vocabulary stream, both engines served, nothing migrated (no
+    experts), each kernel of ``needed`` launched, the routes as
+    ``check_routes`` holds them. ``run()`` -> (SimResult, engines, wall s).
+    Returns (launches, tensor-core launches)."""
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    res, _, wall = run()
+    launches, tc = read_counts(counters)
+    peak = torch.cuda.max_memory_allocated()
+    sig = res.signals
+    new = reqs[0].max_new_tokens
+    bad = [r.req_id for r in reqs if r.error or r.finish_time < 0
+           or len(r.full_output_tokens) != new
+           or not all(0 <= t < cfg.vocab_size for t in r.full_output_tokens)]
+    if bad or sig["unfinished"]:
+        raise AssertionError(f"dense_families: {label}: requests {bad} did "
+                             f"not finish with a full in-vocabulary stream "
+                             f"({sig['errors']})")
+    if min(sig["per_engine"].values()) <= 0:
+        raise AssertionError(f"dense_families: {label}: an engine served "
+                             f"nothing ({sig['per_engine']})")
+    if sig["migrations"] or sig["expert_moves"]:
+        raise AssertionError(f"dense_families: {label}: a model without "
+                             f"experts migrated ({sig['migrations']})")
+    for name in needed:
+        if launches[name] <= 0:
+            raise AssertionError(f"dense_families: {label}: kernel {name} "
+                                 "was not launched")
+    check_routes(f"dense_families: {label}", launches, tc, mains, cuda_cores)
+    prompt = sum(r.prompt_len for r in reqs)
+    gen_tok = sum(len(r.full_output_tokens) for r in reqs)
+    log(f"dense_families: {label}: {len(reqs)}/{len(reqs)} requests "
+        f"({prompt} prompt + {gen_tok} generated tokens) through "
+        f"serve_real_cluster on 2 engines in {wall:.2f} s wall, "
+        f"{sig['rounds']} rounds; Algorithm-1 decisions {sig['decisions']}, "
+        f"per engine {sig['per_engine']}; launches "
+        f"{ {n: launches[n] for n in needed} }, routes "
+        f"{ {n: route_name(tc[n]) for n in needed if n in tc} }; peak "
+        f"memory {peak / 2**30:.2f} GiB")
+    return launches, tc
+
+
+def qwen15_entry_points(args, cfg, params, counters):
+    """qwen1.5-32b through ``build_model``'s entry points: prefill of 8
+    prompts of 1024 tokens into a (8, 2048) cache, then 32 decode steps of
+    the same random tokens, once with a bf16 cache and once with an int8
+    cache. The two runs' logits meet the reference's bar
+    (``tests/test_models.py::test_int8_kv_cache_close_to_bf16``): max |int8
+    - bf16| < 0.05 * max |bf16| + 0.05, at every step. Returns the int8
+    run's (launches, tensor-core launches)."""
+    from repro_torch.models import build_model
+    fns = build_model(cfg)
+    B, S, L, steps = 8, 1024, 2048, 32
+    rng = np.random.default_rng(args.seed + 7)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                             dtype=torch.int32, device="cuda")
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (steps, B)),
+                           dtype=torch.int32, device="cuda")
+    logits, counts = {}, {}
+    for kvd in ("bfloat16", "int8"):
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        cache = fns.init_cache(B, L, kv_dtype=kvd, device="cuda")
+        cache_gib = sum(t.numel() * t.element_size() for c in cache.values()
+                        for t in c.values()) / 2**30
+        lengths = torch.full((B,), S, dtype=torch.int32, device="cuda")
+        lg, cache, _ = fns.prefill(params, {"tokens": prompt,
+                                            "lengths": lengths}, cache)
+        out = [lg]
+        for i in range(steps):
+            lg, cache, _ = fns.decode(params, toks[i], cache, torch.full(
+                (B,), S + i, dtype=torch.int32, device="cuda"))
+            out.append(lg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, tc = read_counts(counters)
+        counts[kvd] = (launches, tc)
+        del cache
+        logits[kvd] = torch.stack(out)
+        if tuple(logits[kvd].shape) != (steps + 1, B, cfg.vocab_size) or \
+                not torch.isfinite(logits[kvd]).all():
+            raise AssertionError(f"qwen1.5-32b ({kvd} cache): logits not "
+                                 "finite or of the wrong shape")
+        writes = (steps + 1) * cfg.n_layers if kvd == "int8" else 0
+        if launches["flash_decode"] != steps * cfg.n_layers or \
+                launches["pack_kv"] != writes:
+            raise AssertionError(f"qwen1.5-32b ({kvd} cache): launches "
+                                 f"{launches}; expected flash_decode "
+                                 f"{steps * cfg.n_layers}, pack_kv {writes}")
+        check_routes(f"dense_families: qwen1.5-32b entry points ({kvd})",
+                     launches, tc, ("flash_decode",))
+        log(f"dense_families: qwen1.5-32b entry points, {kvd} cache of "
+            f"{cache_gib:.2f} GiB: prefill of {B} x {S} tokens and {steps} "
+            f"decode steps in {wall:.2f} s wall, flash_decode launches "
+            f"{launches['flash_decode']} ({route_name(tc['flash_decode'])}), "
+            f"pack_kv {launches['pack_kv']} (one ring write a layer and "
+            f"call); peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    ref = logits["bfloat16"].float()
+    diff = float((logits["int8"].float() - ref).abs().max())
+    scale = float(ref.abs().max())
+    if not diff < 0.05 * scale + 0.05:
+        raise AssertionError(f"qwen1.5-32b: int8 against bf16 cache: max "
+                             f"|diff| {diff} >= 0.05 * {scale} + 0.05")
+    log(f"dense_families: qwen1.5-32b: int8 against bf16 cache over the "
+        f"{steps + 1} logits: max |diff| {diff:.4f} < 0.05 * max|bf16| + "
+        f"0.05 = {0.05 * scale + 0.05:.4f} (the reference's bar)")
+    return counts["int8"]
+
+
+def dense_families_twins():
+    """Float32 twins of the four families at their smoke sizes through
+    ``serve_real_cluster`` on the card and on the CPU: two dense engines
+    each (the gemmas' 16-slot local rings overflowed by the prompts), and
+    two paged engines on int8 pages for the two qwens; the same tokens and
+    signals on both."""
+    from repro_torch.bridge import tree_map
+    from repro_torch.configs import get_smoke_config, reduced
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import PagedEngineConfig
+    keys = ("decisions", "per_engine", "unfinished", "migrations", "rounds")
+    for arch in ("qwen3-8b", "qwen1.5-32b", "gemma2-2b", "gemma3-12b"):
+        cfg = reduced(get_smoke_config(arch), dtype="float32")
+        params = tfm.init_params(
+            cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+        params_gpu = tree_map(lambda t: t.to("cuda"), params)
+        planes = ["dense"] + (["paged int8"] if arch.startswith("qwen")
+                              else [])
+        for plane in planes:
+            out = {}
+            for dev, p in (("cpu", params), ("cuda", params_gpu)):
+                reqs = make_requests(cfg, 8, 6, 30, 5, seed=7, gap=0.1)
+                if plane == "dense":
+                    res = serve_dense_cluster(cfg, p, reqs, device=dev,
+                                              ragged=True, max_slots=4,
+                                              max_len=64)[0]
+                else:
+                    ecfg = PagedEngineConfig(
+                        page_size=8, n_pages=48, max_blocks_per_req=8,
+                        max_batch=4, token_budget=16, chunk_buckets=(8, 16),
+                        kv_dtype="int8", device=dev)
+                    res = serve_cluster(cfg, p, ecfg, reqs)[0]
+                out[dev] = ([r.full_output_tokens for r in reqs],
+                            {k: res.signals[k] for k in keys})
+            (toks_c, sig_c), (toks_g, sig_g) = out["cpu"], out["cuda"]
+            if toks_c != toks_g or sig_c != sig_g or sig_g["unfinished"]:
+                diff = [k for k in keys if sig_c[k] != sig_g[k]]
+                raise AssertionError(f"float32 twin {arch} ({plane}): card "
+                                     f"and CPU disagree (tokens equal: "
+                                     f"{toks_c == toks_g}; signals that "
+                                     f"differ: {diff})")
+            log(f"dense_families: float32 twin {arch} ({plane}): card "
+                f"kernels and CPU plain versions give the same "
+                f"{sum(map(len, toks_c))} tokens, decisions "
+                f"{sig_g['decisions']}, {sig_g['rounds']} rounds")
+
+
+def dense_families_phase(args, counters):
+    """The dense families at full width on the card, each family's weights
+    freed before the next: qwen3-8b (36 layers) through serve_real_cluster
+    over two paged engines on bf16 pages, then on int8 pages, then over two
+    dense engines; gemma3-12b (48 layers, 5 local layers of window 1024 to
+    1 global, hd 256) and gemma2-2b (26 layers, softcaps 50 and 30, hd 256)
+    over two dense engines of 2048 tokens a slot, where ``flash_decode``
+    takes the CUDA cores (half of gemma3's serve again, profiled);
+    qwen1.5-32b at full width and 32 of its 64 layers
+    through ``build_model``'s entry points with bf16 and int8 caches, then
+    over two dense engines; then the float32 twins. Returns the phase's
+    summed (launches, tensor-core launches)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.serving import PagedEngineConfig
+    total, total_tc = {}, {}
+
+    def add(counts):
+        for acc, c in zip((total, total_tc), counts):
+            for k, v in c.items():
+                acc[k] = acc.get(k, 0) + v
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    cfg = get_config("qwen3-8b")
+    params = init_family(cfg, args.seed, "qwen3-8b")
+    for kv in ("auto", "int8"):
+        ecfg = PagedEngineConfig(**DENSE_PAGED, kv_dtype=kv, device="cuda")
+        reqs = make_requests(cfg, 8, 256, 1024, 32, seed=args.seed + 5,
+                             gap=0.1)
+        needed = ("paged_decode",) + (("pack_kv", "unpack_kv")
+                                      if kv == "int8" else ())
+        add(family_serve(
+            f"qwen3-8b, paged {'int8' if kv == 'int8' else 'bf16'} pages",
+            cfg, reqs, counters,
+            lambda: serve_cluster(cfg, params, ecfg, reqs), needed,
+            mains=("paged_decode",)))
+    reqs = make_requests(cfg, 8, 256, 1024, 32, seed=args.seed + 5, gap=0.1)
+    add(family_serve(
+        "qwen3-8b, dense caches (8 slots x 1088)", cfg, reqs, counters,
+        lambda: serve_dense_cluster(cfg, params, reqs, device="cuda",
+                                    ragged=True, max_slots=8,
+                                    max_len=1088)[:3],
+        ("flash_decode",), mains=("flash_decode",)))
+    del params
+    free()
+
+    for arch in ("gemma3-12b", "gemma2-2b"):
+        cfg = get_config(arch)
+        params = init_family(cfg, args.seed, arch)
+
+        def gemma_reqs(n=8, new=64):
+            return make_requests(cfg, n, 900, 1400, new, seed=args.seed + 6,
+                                 gap=0.1)
+
+        def gemma_serve(reqs):
+            return serve_dense_cluster(cfg, params, reqs, device="cuda",
+                                       ragged=True, max_slots=8,
+                                       max_len=2048)[:3]
+
+        reqs = gemma_reqs()
+        rings = sorted({min(cfg.sliding_window, 2048) if cfg.is_local_layer(j)
+                        else 2048 for j in range(cfg.n_layers)})
+        if arch == "gemma3-12b" and not (
+                rings[0] == 1024 and any(r.prompt_len > 1024 for r in reqs)):
+            raise AssertionError("gemma3-12b: expected 1024-slot local rings "
+                                 "that a prompt overflows")
+        add(family_serve(
+            f"{arch}, dense caches (8 slots x 2048; cache rows of {rings} "
+            f"slots)", cfg, reqs, counters, lambda: gemma_serve(reqs),
+            ("flash_decode",), cuda_cores=("flash_decode",)))
+        if arch == "gemma3-12b":
+            # hd 256 decode on the CUDA cores, in a serve of half the
+            # requests and new tokens: on an H100 the profiler took minutes
+            # to aggregate the whole serve's 0.6 M kernel events
+            profiled("dense_families gemma3-12b (4 requests, 32 new)",
+                     lambda: "{} rounds".format(gemma_serve(gemma_reqs(
+                         4, 32))[0].signals["rounds"]))
+        del params
+        free()
+
+    full = get_config("qwen1.5-32b")
+    cfg = reduced(full, n_layers=32)
+    full_gib = full.param_count() * 2 / 2**30
+    log(f"dense_families: qwen1.5-32b: reduced n_layers {full.n_layers}→"
+        f"{cfg.n_layers} (width unchanged; {full_gib:.1f} GiB of bf16 "
+        f"weights at full depth do not fit one 80 GB card)")
+    params = init_family(cfg, args.seed, "qwen1.5-32b")
+    add(qwen15_entry_points(args, cfg, params, counters))
+    free()
+    reqs = make_requests(cfg, 8, 256, 1024, 32, seed=args.seed + 8, gap=0.1)
+    add(family_serve(
+        "qwen1.5-32b, dense caches (8 slots x 1088)", cfg, reqs, counters,
+        lambda: serve_dense_cluster(cfg, params, reqs, device="cuda",
+                                    ragged=True, max_slots=8,
+                                    max_len=1088)[:3],
+        ("flash_decode",), mains=("flash_decode",)))
+    del params
+    free()
+    dense_families_twins()
+    return total, total_tc
 
 
 def main() -> int:
@@ -2062,6 +2535,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     l4_launches, l4_tc = llama4_serve_phase(args, counters)
     phase_done("llama4_serve (profiled)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    df_launches, df_tc = dense_families_phase(args, counters)
+    phase_done("dense_families")
     # each kernel's main-path count: the dense cluster serve for the two
     # kernels of the dense plane, the paged cluster serve for the others
     main_launches = dict(launches, flash_decode=dense_launches["flash_decode"],
@@ -2097,7 +2574,8 @@ def main() -> int:
                        "cluster_serve": cluster_tc.get(name, 0),
                        "dense_cluster_serve": dense_tc[name],
                        "scenario_serve": scen_tc.get(name, 0),
-                       "llama4_serve": l4_tc.get(name, 0)}}
+                       "llama4_serve": l4_tc.get(name, 0),
+                       "dense_families": df_tc.get(name, 0)}}
         kernels.append({
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1], "launches": main_launches[name],
@@ -2105,7 +2583,8 @@ def main() -> int:
                                  "cluster_serve": launches.get(name, 0),
                                  "dense_cluster_serve": dense_launches[name],
                                  "scenario_serve": scen_launches.get(name, 0),
-                                 "llama4_serve": l4_launches.get(name, 0)},
+                                 "llama4_serve": l4_launches.get(name, 0),
+                                 "dense_families": df_launches.get(name, 0)},
             "max_abs_err": max(r["err"] for dt, r in rows
                                if dt.split("/")[0] in ("bfloat16", "int32")),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],

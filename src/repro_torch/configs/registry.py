@@ -10,6 +10,10 @@ from repro_torch.configs.base import ModelConfig
 _ARCHS: Dict[str, str] = {
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "gemma2-2b": "gemma2_2b",
+    "qwen3-8b": "qwen3_8b",
+    "qwen1.5-32b": "qwen1_5_32b",
+    "gemma3-12b": "gemma3_12b",
 }
 
 

@@ -101,10 +101,12 @@ __device__ __forceinline__ void stage(const State& st, int hd, int t, int c,
 }
 
 // One online-softmax step over the n <= TILE rows staged in ks/vs (the
-// caller synchronised after staging): scores, per-head max and sum with
-// the rescale of the running state, then the accumulator. Ends synchronised.
+// caller synchronised after staging): scores (capped to cap * tanh(s /
+// cap) when cap > 0), per-head max and sum with the rescale of the running
+// state, then the accumulator. Ends synchronised.
 __device__ __forceinline__ void attend_tile(const State& st, int G, int hd,
-                                            int n, float scale) {
+                                            int n, float scale,
+                                            float cap = 0.f) {
   const int tid = threadIdx.x;
   const int ks_ld = hd + 1;
   for (int i = tid; i < G * TILE; i += blockDim.x) {
@@ -116,6 +118,7 @@ __device__ __forceinline__ void attend_tile(const State& st, int G, int hd,
       const float* kr = st.ks + t * ks_ld;
       for (int d = 0; d < hd; ++d) dot = fmaf(qr[d], kr[d], dot);
       s = dot * scale;
+      if (cap > 0.f) s = cap * tanhf(s / cap);
     }
     st.sc[i] = s;
   }

@@ -42,12 +42,20 @@
 // decode (src/repro/models/attention.py:58-60) casts it the same way. The
 // running max, the sum l (of the unrounded p) and acc stay f32; against
 // the f32 plain version the difference stays within the bf16 bar of 3e-2.
-// Int8 pages: the codes are converted to bf16 exactly (|v| <= 127) in a
-// pass from the raw ring into one bf16 K and V tile per warp; the K scale
-// multiplies the score after q . codes (s_t = k_scale[t] * (q . codes_t) *
-// hd^-1/2), the V scale multiplies p before its bf16 cast (p_t *
-// v_scale[t]) while l sums the unscaled p, so no dequantized value is ever
-// rounded to bf16. A masked token's p is exactly 0 (set, not computed:
+// Int8 K/V: the codes are converted to bf16 in a pass from the raw ring
+// into one bf16 K and V tile per warp. Two ways, by the DEQ parameter:
+// - DEQ false (paged_decode, whose reference dequantizes in f32): the codes
+//   convert exactly (|v| <= 127); the K scale multiplies the score after
+//   q . codes (s_t = k_scale[t] * (q . codes_t) * hd^-1/2), the V scale
+//   multiplies p before its bf16 cast (p_t * v_scale[t]) while l sums the
+//   unscaled p, so no dequantized value is ever rounded to bf16.
+// - DEQ true (flash_decode, whose reference dense cache dequantizes as
+//   (code * scale) rounded to bf16, src/repro/models/attention.py:35-38):
+//   the pass writes bf16(code * scale) with the row's own scale, and the
+//   scores and p are those of a bf16 cache.
+// A logit softcap (cap > 0, the dense cache of gemma2) replaces the scaled
+// score s by cap * tanh(s / cap), in registers after the score mma and
+// before the mask. A masked token's p is exactly 0 (set, not computed:
 // -1e30 * log2 e stays finite). A slice with no token writes max NEG_INF
 // and sum 0 and returns at once, without its accumulator: the combine gives
 // such a slice the weight 0 and never reads it.
@@ -110,10 +118,11 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // The partial pass of one block over the n tokens of its slice, for the G
 // query heads whose q rows (HD bf16 each) start at q. Token i of the slice
 // is row rows(i) of the K/V tensors: its values at kp/vp + rows(i) * HD,
-// its scales (int8 pages) at ksc/vsc[rows(i)]. Writes, for g < G, row
-// row0 + g * n_split of the partials: max (log2 units), sum, acc. Every
-// thread of the block calls it; smem holds Layout<HD, QUANT>::BYTES.
-template <int HD, bool QUANT, typename Rows>
+// its scales (int8) at ksc/vsc[rows(i)]. scale_log2 = hd^-1/2 * log2 e;
+// cap > 0 caps the scores (cap_scale = hd^-1/2 then). Writes, for g < G,
+// row row0 + g * n_split of the partials: max (log2 units), sum, acc.
+// Every thread of the block calls it; smem holds Layout<HD, QUANT>::BYTES.
+template <int HD, bool QUANT, bool DEQ = false, typename Rows>
 __device__ __forceinline__ void attend_slice(
     const __nv_bfloat16* __restrict__ q, int G,
     const typename std::conditional<QUANT, int8_t, __nv_bfloat16>::type*
@@ -122,7 +131,7 @@ __device__ __forceinline__ void attend_slice(
         __restrict__ vp,
     const float* __restrict__ ksc, const float* __restrict__ vsc, int n,
     const Rows& rows, float scale_log2, char* smem, const Partials& part,
-    size_t row0, int n_split) {
+    size_t row0, int n_split, float cap = 0.f, float cap_scale = 0.f) {
   using Lay = Layout<HD, QUANT>;
   constexpr int KT = HD / 16;                  // k16 steps of q . k
   constexpr int NT = HD / 8;                   // n8 tiles of acc
@@ -208,6 +217,7 @@ __device__ __forceinline__ void attend_slice(
     if constexpr (QUANT) {
       const char* raw = wsm + stage;
       char* tiles = wsm + STAGES * Lay::STAGE;
+      sc = reinterpret_cast<const float*>(raw + 2 * Lay::RAW);
       constexpr int RCH = HD / 16;
 #pragma unroll
       for (int i = lane; i < 2 * TOK * RCH; i += 32) {
@@ -217,17 +227,19 @@ __device__ __forceinline__ void attend_slice(
             *reinterpret_cast<const uint4*>(raw + kv * Lay::RAW + r * HD +
                                             c * 16);
         const int8_t* v = reinterpret_cast<const int8_t*>(&w);
+        const float f = DEQ ? sc[kv * TOK + r] : 1.f;
         uint4 o[2];
         uint32_t* o32 = reinterpret_cast<uint32_t*>(o);
 #pragma unroll
         for (int e = 0; e < 8; ++e)
-          o32[e] = pack_bf16((float)v[2 * e], (float)v[2 * e + 1]);
+          o32[e] = DEQ ? pack_bf16((float)v[2 * e] * f,
+                                   (float)v[2 * e + 1] * f)
+                       : pack_bf16((float)v[2 * e], (float)v[2 * e + 1]);
         uint4* dst = reinterpret_cast<uint4*>(
             tiles + kv * Lay::TILE + (r * Lay::LD + c * 16) * 2);
         dst[0] = o[0];
         dst[1] = o[1];
       }
-      sc = reinterpret_cast<const float*>(raw + 2 * Lay::RAW);
       kt = smem_addr(tiles);
       vt = kt + Lay::TILE;
       __syncwarp();
@@ -250,8 +262,11 @@ __device__ __forceinline__ void attend_slice(
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int t = nt * 8 + 2 * tig + (e & 1);
-        float v = s[nt][e] * scale_log2;
-        if constexpr (QUANT) v *= sc[t];
+        // cap > 0 comes only with bf16 or DEQ tiles, whose scores need
+        // no K scale
+        float v = cap > 0.f ? cap * tanhf(s[nt][e] * cap_scale / cap) * LOG2E
+                            : s[nt][e] * scale_log2;
+        if constexpr (QUANT && !DEQ) v *= sc[t];
         v = t0 + t < n ? v : NEG_INF;
         s[nt][e] = v;
         mx[e >> 1] = fmaxf(mx[e >> 1], v);
@@ -276,7 +291,7 @@ __device__ __forceinline__ void attend_slice(
         float p0 = t0 + t < n ? exp2f(s[nt][2 * r] - m[r]) : 0.f;
         float p1 = t0 + t + 1 < n ? exp2f(s[nt][2 * r + 1] - m[r]) : 0.f;
         l[r] += p0 + p1;
-        if constexpr (QUANT) {
+        if constexpr (QUANT && !DEQ) {
           p0 *= sc[TOK + t];
           p1 *= sc[TOK + t + 1];
         }

@@ -11,6 +11,7 @@ zeros.
 ``pack_kv_into_pages`` is the whole KV write of a layer into int8 pages:
 it computes each written row's page slot from the block tables, quantizes
 the rows of K and V and stores codes and scales in place, in one launch.
+``pack_kv_into_ring`` is the same write into a dense ring cache.
 ``pack_kv`` is the same quantization into fresh tensors, the counterpart
 of the reference's ``pack_kv_pallas``. ``unpack_kv`` is the dequantization
 of gathered pages in chunked prefill (paged decode dequantizes inside its
@@ -144,6 +145,21 @@ def pack_kv_into_pages(k, v, pool_k, pool_v, k_scale, v_scale, block_tables,
                block_tables.shape[1], ps, P, ops.DTYPE_CODE[k.dtype],
                device=k.device)
     pack_kv.launches += 1
+
+
+def pack_kv_into_ring(k, v, cache_k, cache_v, k_scale, v_scale, positions):
+    """The int8 write of a dense (ring) cache: quantize k and v (B, S, Hkv,
+    hd) row by row into cache_k, cache_v (B, L, Hkv, hd) int8 and k_scale,
+    v_scale (B, L, Hkv) f32, in place, the token at position p of row b at
+    slot p % L. The cache is seen as a pool of B pages of L slots with the
+    block table ``arange(B)[:, None]``, so :func:`pack_kv_into_pages` does
+    it in one launch. Every row is written: no two of a row's positions may
+    share a slot (the caller passes at most L consecutive positions)."""
+    B = positions.shape[0]
+    bt = torch.arange(B, dtype=torch.int32, device=k.device)[:, None]
+    valid = torch.ones(positions.shape, dtype=torch.bool, device=k.device)
+    pack_kv_into_pages(k, v, cache_k, cache_v, k_scale, v_scale, bt,
+                       positions.to(torch.int32), valid)
 
 
 def unpack_kv(q, s, dtype=torch.float32):

@@ -6,7 +6,8 @@ running max and sum in f32. Like the reference, the softmax weights ``p``
 are cast to the KV dtype before the PV product;
 ``scaled_dot_product_attention`` would not reproduce that rounding.
 
-``decode_attention`` (one token against a dense ring cache) goes through the
+``decode_attention`` (one token against a dense ring cache, with the
+reference's window, softcap and int8 dequantization) goes through the
 flash-decode kernel (``kernels/flash_decode.py``), whose softmax weights
 stay f32. The reference's ``decode_attention`` goes through its
 ``flash_attention`` and so rounds them to the KV dtype: the two agree in
@@ -94,17 +95,18 @@ def decode_attention(q, k_cache, v_cache, *, q_pos, k_pos, window: int = 0,
                      softcap_val: float = 0.0, k_scale=None, v_scale=None):
     """Single-token decode attention against a (ring-buffered) KV cache.
 
-    q: (B, 1, Hq, hd); caches: (B, L, Hkv, hd); q_pos: (B, 1); k_pos: (B, L)
-    with -1 marking never-written slots -> (B, 1, Hq, hd). The flash-decode
-    kernel on the card, its plain version on the CPU.
+    q: (B, 1, Hq, hd); caches: (B, L, Hkv, hd), or int8 with ``k_scale``,
+    ``v_scale`` (B, L, Hkv) f32; q_pos: (B, 1); k_pos: (B, L) with -1
+    marking never-written slots -> (B, 1, Hq, hd). ``window`` > 0 masks
+    slots at or before q_pos - window; ``softcap_val`` > 0 caps the scaled
+    scores. The flash-decode kernel on the card, its plain version on the
+    CPU.
     """
-    if window or softcap_val or k_scale is not None or v_scale is not None:
-        raise NotImplementedError("decode attention with a sliding window, a "
-                                  "logit softcap or int8 scales is not ported "
-                                  "yet (ROADMAP.md Queue A item 8)")
     out = flash_decode(q[:, 0].contiguous(), k_cache, v_cache,
                        k_pos.to(torch.int32).contiguous(),
-                       q_pos[:, 0].to(torch.int32).contiguous())
+                       q_pos[:, 0].to(torch.int32).contiguous(),
+                       window=window, softcap=softcap_val, k_scale=k_scale,
+                       v_scale=v_scale)
     return out[:, None]
 
 

@@ -1,4 +1,5 @@
-"""Decoder-only MoE transformer: the serving data planes' model entry points.
+"""Decoder-only transformer (dense and MoE families): the serving data
+planes' model entry points.
 
 Layers are grouped into *super-blocks* (period P = lcm(moe_every,
 local_ratio + 1)); params and page pools are stacked ``(n_super, ...)`` per
@@ -31,7 +32,8 @@ import torch
 
 from repro_torch.bridge import tree_leaves, tree_map
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.kv_pack import (pack_kv_into_pages, page_slots,
+from repro_torch.kernels.kv_pack import (pack_kv_into_pages,
+                                         pack_kv_into_ring, page_slots,
                                          unpack_kv)
 from repro_torch.kernels.paged_decode import paged_decode
 from repro_torch.models import moe as moe_mod
@@ -90,10 +92,11 @@ def init_attention(cfg: ModelConfig, *, generator, device):
 
 
 def init_layer(cfg: ModelConfig, desc: LayerDesc, *, generator, device):
-    if desc.hybrid or desc.local or cfg.post_norms:
-        raise NotImplementedError(f"{cfg.name}: only the plain decoder layer "
-                                  "is ported (ROADMAP.md Queue A: other "
-                                  "model families)")
+    """A local (sliding-window) layer has the same leaves as a global one;
+    ``post_norms`` (gemma2/3) adds the post-attention and post-FFN norms."""
+    if desc.hybrid:
+        raise NotImplementedError(f"{cfg.name}: the hybrid (mamba) layer is "
+                                  "not ported yet (ROADMAP.md Queue A item 9)")
     kw = dict(generator=generator, device=device)
     p: Dict[str, Any] = {
         "ln_attn": torch.zeros(cfg.d_model, device=device),
@@ -105,6 +108,9 @@ def init_layer(cfg: ModelConfig, desc: LayerDesc, *, generator, device):
     else:
         p["mlp"] = init_mlp(cfg.d_model, cfg.d_ff, torch_dtype(cfg.dtype),
                             **kw)
+    if cfg.post_norms:
+        p["post_attn_norm"] = torch.zeros(cfg.d_model, device=device)
+        p["post_ffn_norm"] = torch.zeros(cfg.d_model, device=device)
     return p
 
 
@@ -157,18 +163,25 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     """Dense slot-indexed KV cache: per super-block position k/v tensors of
     shape (n_super, batch, L, Hkv, hd) in the model's dtype, L =
     ``kv_len_for(max_len)``. Any ``kv_dtype`` but "int8" keeps the model
-    dtype, as in the reference."""
-    if kv_dtype == "int8":
-        raise NotImplementedError("int8 dense KV caches are not ported yet "
-                                  "(ROADMAP.md Queue A item 8)")
+    dtype, as in the reference.
+
+    ``kv_dtype="int8"`` stores int8 k/v and per-(slot, head) f32
+    ``k_scale``/``v_scale`` leaves (n_super, batch, L, Hkv)
+    (kernels/kv_pack.py); decode dequantizes on read."""
     ns = n_super_blocks(cfg)
-    dt = torch_dtype(cfg.dtype)
+    quant = kv_dtype == "int8"
+    dt = torch.int8 if quant else torch_dtype(cfg.dtype)
     cache = {}
     for j, desc in enumerate(period_descriptors(cfg)):
         shape = (ns, batch, kv_len_for(cfg, desc, max_len), cfg.n_kv_heads,
                  cfg.head_dim)
-        cache[f"pos{j}"] = {"k": torch.zeros(shape, dtype=dt, device=device),
-                            "v": torch.zeros(shape, dtype=dt, device=device)}
+        c = {"k": torch.zeros(shape, dtype=dt, device=device),
+             "v": torch.zeros(shape, dtype=dt, device=device)}
+        if quant:
+            for leaf in ("k_scale", "v_scale"):
+                c[leaf] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                      device=device)
+        cache[f"pos{j}"] = c
     return cache
 
 
@@ -345,39 +358,43 @@ def _paged_attention(cfg, q, k, v, positions, cache, mode, paged):
 def _dense_attention(cfg, desc, q, k, v, positions, cache, mode):
     """Dense slot-indexed KV: write the new k/v into the cache rows (in
     place), then attend. cache: {"k": (B, L, Hkv, hd), "v": ...}, one
-    super-block slice.
+    super-block slice; int8 caches also hold "k_scale", "v_scale" (B, L,
+    Hkv).
 
-    prefill: causal flash attention over the S new tokens; the cache keeps
-    them at slots [0, S), or the last L at slots pos % L when L < S (ring).
-    decode (S == 1): the token at position p goes to slot p % L, and the
-    slots' positions come from ``ring_positions``."""
+    prefill: causal flash attention over the S new tokens (unquantized, as
+    in the reference); the cache keeps them at slots [0, S), or the last L
+    at slots pos % L when L < S (ring). decode (S == 1): the token at
+    position p goes to slot p % L, and the slots' positions come from
+    ``ring_positions``. An int8 cache's write quantizes each row through
+    ``pack_kv_into_ring``, one launch for K and V on the card."""
     B, S = positions.shape
     window = cfg.sliding_window if desc.local else 0
     ck, cv = cache["k"], cache["v"]
+    cks, cvs = cache.get("k_scale"), cache.get("v_scale")
     L = ck.shape[1]
+    wpos = positions                                   # the rows written
     if mode == "prefill":
         out = flash_attention(q, k, v, q_pos=positions, k_pos=positions,
                               causal=True, window=window,
                               softcap_val=cfg.attn_logit_softcap)
-        if L >= S:
-            ck[:, :S] = k
-            cv[:, :S] = v
-        else:              # ring: keep the last L tokens at slots pos % L
-            bidx = torch.arange(B, device=q.device)[:, None]
-            slots = (positions[:, S - L:] % L).long()
-            ck[bidx, slots] = k[:, S - L:]
-            cv[bidx, slots] = v[:, S - L:]
+        if L < S:          # ring: keep the last L tokens at slots pos % L
+            k, v, wpos = k[:, S - L:], v[:, S - L:], positions[:, S - L:]
+    if cks is not None:
+        pack_kv_into_ring(k, v, ck, cv, cks, cvs, wpos)
+    else:
+        bidx = torch.arange(B, device=q.device)[:, None]
+        slots = (wpos % L).long()
+        ck[bidx, slots] = k
+        cv[bidx, slots] = v
+    if mode == "prefill":
         return out, cache
     pos = positions[:, 0]                              # (B,) current position
-    bidx = torch.arange(B, device=q.device)
-    slot = (pos % L).long()
-    ck[bidx, slot] = k[:, 0]
-    cv[bidx, slot] = v[:, 0]
     # the reference's _split_decode with one shard: the port has no
     # sharding policy to split the KV across
     out = decode_attention(q, ck, cv, q_pos=positions,
                            k_pos=ring_positions(pos, L), window=window,
-                           softcap_val=cfg.attn_logit_softcap)
+                           softcap_val=cfg.attn_logit_softcap, k_scale=cks,
+                           v_scale=cvs)
     return out, cache
 
 
@@ -396,6 +413,8 @@ def attention_block(lp, cfg, desc, x, positions, cache, mode, paged):
         out, cache = _paged_attention(cfg, q, k, v, positions, cache, mode,
                                       paged)
     out = out.reshape(B, S, cfg.q_dim) @ lp["attn"]["wo"]
+    if cfg.post_norms:
+        out = rms_norm(out, lp["post_attn_norm"], cfg.norm_eps)
     return out, cache
 
 
@@ -418,6 +437,8 @@ def decoder_layer(lp, cfg, desc, x, positions, cache, mode, placement_row,
             ragged=ragged, token_mask=mask)
     else:
         y = mlp(lp["mlp"], xn)
+    if cfg.post_norms:
+        y = rms_norm(y, lp["post_ffn_norm"], cfg.norm_eps)
     return x + y, cache, stats
 
 

@@ -47,7 +47,9 @@ def _block_tables(cuda, B, P, ps, NB, seed):
 PAGED_SHAPES = [(2, 4, 4, 32, 16, 4), (3, 8, 2, 16, 8, 5), (4, 4, 1, 64, 32, 3),
                 (8, 32, 4, 128, 16, 64), (2, 16, 2, 256, 8, 6),
                 (2, 32, 1, 64, 16, 4),         # G = 32: the CUDA cores
-                (8, 40, 8, 128, 16, 64)]       # llama4: G = 5
+                (8, 40, 8, 128, 16, 64),       # llama4: G = 5
+                (8, 32, 8, 128, 16, 64),       # qwen3-8b: G = 4
+                (8, 40, 40, 128, 16, 64)]      # qwen1.5-32b: G = 1
 
 
 def _decode_tc(dtype, hd, G):
@@ -244,7 +246,8 @@ def test_moe_gmm_ragged_kernel(cuda, dtype, T, K, E, D, F):
 FLASH_SHAPES = [(4, 4, 4, 64, 512), (4, 8, 2, 128, 300),
                 (8, 32, 4, 128, 1024), (4, 16, 2, 256, 129), (4, 8, 8, 32, 5),
                 (4, 32, 1, 64, 100),           # G = 32: the CUDA cores
-                (8, 40, 8, 128, 1024)]         # llama4: G = 5
+                (8, 40, 8, 128, 1024),         # llama4: G = 5
+                (8, 16, 8, 256, 1024)]         # gemma3: hd 256, G = 2
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -275,6 +278,65 @@ def test_flash_decode_kernel(cuda, dtype, B, Hq, Hkv, hd, L):
     assert torch.equal(out[3], torch.zeros_like(out[3]))
     torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype],
                                atol=TOL[dtype])
+
+
+# (B, Hq, Hkv, hd, L, window, softcap, int8 cache)
+FLASH_TERMS = [(4, 8, 4, 256, 600, 200, 50.0, False),   # gemma2's terms
+               (4, 16, 8, 256, 1100, 1024, 0.0, False),  # gemma3's window
+               (4, 8, 2, 128, 600, 200, 30.0, False),
+               (4, 8, 8, 128, 300, 0, 0.0, True),        # int8, G = 1
+               (4, 16, 4, 128, 300, 0, 0.0, True),       # int8, G = 4
+               (4, 8, 4, 256, 300, 100, 50.0, True)]     # all three
+
+
+@pytest.mark.parametrize("route", ["float32", "bfloat16", "bfloat16 q off"])
+@pytest.mark.parametrize("B,Hq,Hkv,hd,L,window,cap,int8", FLASH_TERMS)
+def test_flash_decode_window_softcap_int8(cuda, route, B, Hq, Hkv, hd, L,
+                                          window, cap, int8):
+    """The sliding window, the logit softcap and int8 caches with their
+    scales, on both routes: f32 (the CUDA cores), bf16 (the tensor cores up
+    to hd 128, the CUDA cores at hd 256) and bf16 with q 2 bytes off a
+    16-byte boundary (the CUDA cores). Rows as in
+    ``test_flash_decode_kernel``; the window masks most of the wrapped
+    ring. f32 without int8 within 1e-4, the rest within the bf16 bar."""
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_plain)
+    from repro_torch.kernels.kv_pack import pack_kv_plain
+    from repro_torch.models.attention import ring_positions
+    dtype = torch.float32 if route == "float32" else torch.bfloat16
+    g = torch.Generator(device=cuda).manual_seed(hd + L)
+    buf = torch.randn(B * Hq * hd + 1, generator=g, device=cuda).to(dtype)
+    q = (buf[1:] if route.endswith("off") else buf[:-1]).view(B, Hq, hd)
+    kc = torch.randn(B, L, Hkv, hd, generator=g, device=cuda) * 4
+    vc = torch.randn(B, L, Hkv, hd, generator=g, device=cuda)
+    scales = {}
+    if int8:
+        kc, ks = pack_kv_plain(kc)
+        vc, vs = pack_kv_plain(vc)
+        scales = dict(k_scale=ks, v_scale=vs)
+    else:
+        kc, vc = kc.to(dtype), vc.to(dtype)
+    write = torch.tensor([3 * L + 2, L // 2, L - 1, 0], device=cuda)
+    k_pos = ring_positions(write, L)
+    q_pos = write.to(torch.int32).clone()
+    q_pos[1] -= 2                         # slots past q_pos are masked
+    k_pos[3] = -1                         # no valid slot at all
+    terms = dict(window=window, softcap=cap, **scales)
+    before = (flash_decode.launches, flash_decode.tc_launches)
+    out = flash_decode(q, kc, vc, k_pos, q_pos, **terms)
+    tc = route == "bfloat16" and _decode_tc(dtype, hd, Hq // Hkv)
+    assert (flash_decode.launches, flash_decode.tc_launches) == (
+        before[0] + 1, before[1] + tc)
+    ref = flash_decode_plain(q, kc, vc, k_pos, q_pos, **terms)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype
+    assert torch.equal(out[3], torch.zeros_like(out[3]))
+    tol = TOL[torch.bfloat16 if int8 else dtype]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    if window:                  # the window masks: without it rows move
+        wide = flash_decode_plain(q, kc, vc, k_pos, q_pos, softcap=cap,
+                                  **scales)
+        assert float((wide[0].float() - ref[0].float()).abs().max()) > 0.05
 
 
 def _paged_inputs(cuda, B, ctx, NB, int8_pages, seed, dtype=torch.bfloat16,

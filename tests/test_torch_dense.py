@@ -139,7 +139,8 @@ def test_dense_prefill_and_decode_match_reference(twin, ragged, S, L):
                                        (jnp.bfloat16, 3e-2)])
 def test_decode_attention_matches_reference(dtype, tol):
     """The port's decode attention (the flash-decode function) against the
-    reference's (its flash_attention) on a wrapped ring cache."""
+    reference's (its flash_attention) on a wrapped ring cache, without and
+    with a sliding window."""
     rng = np.random.default_rng(1)
     B, Hq, Hkv, hd, L = 3, 8, 2, 32, 64
     q = jnp.asarray(rng.normal(size=(B, 1, Hq, hd)), dtype)
@@ -155,9 +156,13 @@ def test_decode_attention_matches_reference(dtype, tol):
     assert out.shape == (B, 1, Hq, hd) and out.dtype == tt(q).dtype
     np.testing.assert_allclose(out.float().numpy(),
                                np.asarray(ref, np.float32), rtol=tol, atol=tol)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tattn.decode_attention(tt(q), tt(kc), tt(vc), q_pos=tt(qpos),
-                               k_pos=tt(kpos), window=16)
+    # with a window of 16 slots, as the reference's decode_attention
+    ref = jattn.decode_attention(q, kc, vc, q_pos=qpos, k_pos=kpos,
+                                 window=16)
+    out = tattn.decode_attention(tt(q), tt(kc), tt(vc), q_pos=tt(qpos),
+                                 k_pos=tt(kpos), window=16)
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref, np.float32), rtol=tol, atol=tol)
 
 
 def test_build_model_and_what_is_not_ported(twin):
@@ -171,8 +176,13 @@ def test_build_model_and_what_is_not_ported(twin):
                                         cfg.head_dim)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fns.loss(params, {})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fns.init_cache(2, 8, kv_dtype="int8", device="cpu")
+    # an int8 cache: int8 codes and f32 per-(slot, head) scales
+    q8 = fns.init_cache(2, 8, kv_dtype="int8", device="cpu")["pos0"]
+    assert {k: (tuple(v.shape), v.dtype) for k, v in q8.items()} == {
+        "k": ((2, 2, 8, cfg.n_kv_heads, cfg.head_dim), torch.int8),
+        "v": ((2, 2, 8, cfg.n_kv_heads, cfg.head_dim), torch.int8),
+        "k_scale": ((2, 2, 8, cfg.n_kv_heads), torch.float32),
+        "v_scale": ((2, 2, 8, cfg.n_kv_heads), torch.float32)}
     with pytest.raises(NotImplementedError, match="Queue A item 9"):
         t_build_model(dataclasses.replace(tcfg, family="ssm"))
 
