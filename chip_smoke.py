@@ -100,14 +100,37 @@
    phase holds ``paged_decode`` at G = 4 and G = 1, ``flash_decode`` with
    a window and a softcap, at hd 256 and on int8 caches, and the dense
    int8 write at these families' shapes;
-11. prints a ``kernels`` JSON line (all seven kernels), then as its last
+11. the ``other_families`` phase, each family's weights freed before the
+   next, through ``build_model``'s entry points: llava-next-34b at full
+   width and 30 of its 60 layers (prefill of 4 x 2880 stand-in patch
+   embeddings, 32 decode steps, with a bf16 and an int8 cache held to each
+   other at the reference's int8 bar, and a decode held to a prefill one
+   row longer at the same bar; then 8 token requests over two dense
+   engines, ``flash_decode`` at G = 7 on the tensor cores); hymba-1.5b
+   full (32 layers, attention and a mamba branch in each, 30 local layers
+   with 1024-slot rings: 8 requests of 900 to 1400 prompt tokens over two
+   dense engines, ``flash_decode`` at G = 5 on the tensor cores; a decode
+   after 1199 tokens against a prefill of 1200; the wall time of one
+   1400-token prefill and of its mamba loop); xlstm-125m full (a decode
+   after 511 tokens against a prefill of 512; the count of state leaves
+   the dense engine splices, 0, as in the reference; 8 requests over two
+   dense engines); seamless-m4t-large-v2 full (24 + 24 layers: 1024
+   stand-in frames, a 32-token prompt, 32 decode steps with
+   ``enc_lengths``, a decode against a prefill one token longer); and
+   the four float32 twins card against CPU (entry points within 1e-4;
+   the three served families' cluster serves with the same tokens and
+   decisions). The kernel phase holds ``flash_decode`` at hymba's and
+   llava's shapes (a window of 1024 over 4096 slots; int8) and the dense
+   int8 write at llava's 8 KV heads;
+12. prints a ``kernels`` JSON line (all seven kernels), then as its last
    line ``{"ok": true, "device": {...}}``.
 
 Adopting a placement moves the experts' weights in place; each serve
 leaves the caller's weights as they were.
 
 The kernel launch counters are set to 0 just before each serve of steps 4,
-6, 7, 9 and 10 and of each scenario slice of step 8, and read just after;
+6, 7, 9, 10 and 11, of each entry-point run of steps 10 and 11 and of each
+scenario slice of step 8, and read just after;
 each serve fails if a kernel of its path was not launched, or if a bf16
 launch of an expert GEMM or of a decode kernel at full width took the CUDA
 cores instead of the tensor cores (at hd 256, which
@@ -829,6 +852,7 @@ def kernel_phase():
                check_stats(timer, T, K))
     llama4_kernel_rows(timer, record)
     dense_families_kernel_rows(timer, record)
+    other_families_kernel_rows(timer, record)
     return results
 
 
@@ -898,6 +922,30 @@ def dense_families_kernel_rows(timer, record):
                             (1, 1024, "qwen1.5-32b prompt")):
             record("pack_kv", dt + "/ring",
                    check_pack_ring(timer, dtype, B, S, 2048, 40, which))
+
+
+def other_families_kernel_rows(timer, record):
+    """``flash_decode`` at hymba-1.5b's 25/5 heads of 64 (G = 5) over 4096
+    slots with its window of 1024 (a cache longer than the window, so the
+    window masks) and over 2048 slots without (its global layers), and at
+    llava-next-34b's 56/8 heads of 128 (G = 7) over 4096 slots, on bf16 and
+    int8 caches; the dense int8 write at llava's 8 KV heads."""
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype).split(".")[1]
+        record("flash_decode", dt + "/window", check_flash_decode(
+            timer, dtype, Hq=25, Hkv=5, hd=64, L=4096, window=1024,
+            which="hymba local: "))
+        record("flash_decode", dt, check_flash_decode(
+            timer, dtype, Hq=25, Hkv=5, hd=64, L=2048,
+            which="hymba global: "))
+        for int8 in (False, True):
+            record("flash_decode", dt + ("/int8" if int8 else ""),
+                   check_flash_decode(timer, dtype, Hq=56, Hkv=8, hd=128,
+                                      L=4096, int8=int8, which="llava: "))
+        for B, S, which in ((8, 1, "llava-next-34b decode"),
+                            (1, 2880, "llava-next-34b prompt")):
+            record("pack_kv", dt + "/ring",
+                   check_pack_ring(timer, dtype, B, S, 4096, 8, which))
 
 
 # ------------------------------------------------------------------ serving
@@ -2189,17 +2237,17 @@ DENSE_PAGED = dict(page_size=16, n_pages=1024, max_blocks_per_req=72,
                    chunk_buckets=(64, 128, 256, 512))
 
 
-def init_family(cfg, seed, label):
-    """Random bf16 weights of ``cfg`` from ``seed`` on the card, logged."""
-    from repro_torch.models import transformer as tfm
+def init_family(cfg, seed, label, phase="dense_families"):
+    """Random bf16 weights of ``cfg`` from ``seed`` on the card, through
+    ``build_model``'s ``init``, logged."""
+    from repro_torch.models import build_model
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    params = tfm.init_params(
-        cfg, generator=torch.Generator(device="cuda").manual_seed(seed),
-        device="cuda")
+    params = build_model(cfg).init(
+        torch.Generator(device="cuda").manual_seed(seed), device="cuda")
     torch.cuda.synchronize()
-    log(f"dense_families: {label}: {cfg.n_layers} layers, d={cfg.d_model}, "
+    log(f"{phase}: {label}: {cfg.n_layers} layers, d={cfg.d_model}, "
         f"heads {cfg.n_heads}/{cfg.n_kv_heads} of hd={cfg.head_dim}, d_ff="
         f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}: "
         f"{cfg.param_count() * 2 / 2**30:.2f} GiB by param_count(), "
@@ -2211,7 +2259,7 @@ def init_family(cfg, seed, label):
 
 
 def family_serve(label, cfg, reqs, counters, run, needed, mains=(),
-                 cuda_cores=()):
+                 cuda_cores=(), phase="dense_families"):
     """One ``serve_real_cluster`` of the dense families, the counts set to 0
     just before and read just after: every request finished with a full
     in-vocabulary stream, both engines served, nothing migrated (no
@@ -2229,23 +2277,23 @@ def family_serve(label, cfg, reqs, counters, run, needed, mains=(),
            or len(r.full_output_tokens) != new
            or not all(0 <= t < cfg.vocab_size for t in r.full_output_tokens)]
     if bad or sig["unfinished"]:
-        raise AssertionError(f"dense_families: {label}: requests {bad} did "
+        raise AssertionError(f"{phase}: {label}: requests {bad} did "
                              f"not finish with a full in-vocabulary stream "
                              f"({sig['errors']})")
     if min(sig["per_engine"].values()) <= 0:
-        raise AssertionError(f"dense_families: {label}: an engine served "
+        raise AssertionError(f"{phase}: {label}: an engine served "
                              f"nothing ({sig['per_engine']})")
     if sig["migrations"] or sig["expert_moves"]:
-        raise AssertionError(f"dense_families: {label}: a model without "
+        raise AssertionError(f"{phase}: {label}: a model without "
                              f"experts migrated ({sig['migrations']})")
     for name in needed:
         if launches[name] <= 0:
-            raise AssertionError(f"dense_families: {label}: kernel {name} "
+            raise AssertionError(f"{phase}: {label}: kernel {name} "
                                  "was not launched")
-    check_routes(f"dense_families: {label}", launches, tc, mains, cuda_cores)
+    check_routes(f"{phase}: {label}", launches, tc, mains, cuda_cores)
     prompt = sum(r.prompt_len for r in reqs)
     gen_tok = sum(len(r.full_output_tokens) for r in reqs)
-    log(f"dense_families: {label}: {len(reqs)}/{len(reqs)} requests "
+    log(f"{phase}: {label}: {len(reqs)}/{len(reqs)} requests "
         f"({prompt} prompt + {gen_tok} generated tokens) through "
         f"serve_real_cluster on 2 engines in {wall:.2f} s wall, "
         f"{sig['rounds']} rounds; Algorithm-1 decisions {sig['decisions']}, "
@@ -2256,14 +2304,27 @@ def family_serve(label, cfg, reqs, counters, run, needed, mains=(),
     return launches, tc
 
 
+def decode_run(fns, params, batch, cache, toks, start, **kw):
+    """prefill ``batch`` into ``cache``, then one decode step for each row
+    of ``toks`` (steps, B) at positions ``start``, ``start`` + 1, ...;
+    returns the stacked logits (steps + 1, B, V)."""
+    B = toks.shape[1]
+    lg, cache, _ = fns.prefill(params, batch, cache)
+    out = [lg]
+    for i in range(toks.shape[0]):
+        lg, cache, _ = fns.decode(params, toks[i], cache, torch.full(
+            (B,), start + i, dtype=torch.int32, device=toks.device), **kw)
+        out.append(lg)
+    return torch.stack(out)
+
+
 def qwen15_entry_points(args, cfg, params, counters):
     """qwen1.5-32b through ``build_model``'s entry points: prefill of 8
     prompts of 1024 tokens into a (8, 2048) cache, then 32 decode steps of
     the same random tokens, once with a bf16 cache and once with an int8
     cache. The two runs' logits meet the reference's bar
-    (``tests/test_models.py::test_int8_kv_cache_close_to_bf16``): max |int8
-    - bf16| < 0.05 * max |bf16| + 0.05, at every step. Returns the int8
-    run's (launches, tensor-core launches)."""
+    (``hold_to_bar``) at every step. Returns the int8 run's (launches,
+    tensor-core launches)."""
     from repro_torch.models import build_model
     fns = build_model(cfg)
     B, S, L, steps = 8, 1024, 2048, 32
@@ -2272,6 +2333,9 @@ def qwen15_entry_points(args, cfg, params, counters):
                              dtype=torch.int32, device="cuda")
     toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (steps, B)),
                            dtype=torch.int32, device="cuda")
+    batch = {"tokens": prompt,
+             "lengths": torch.full((B,), S, dtype=torch.int32,
+                                   device="cuda")}
     logits, counts = {}, {}
     for kvd in ("bfloat16", "int8"):
         torch.cuda.reset_peak_memory_stats()
@@ -2280,20 +2344,12 @@ def qwen15_entry_points(args, cfg, params, counters):
         cache = fns.init_cache(B, L, kv_dtype=kvd, device="cuda")
         cache_gib = sum(t.numel() * t.element_size() for c in cache.values()
                         for t in c.values()) / 2**30
-        lengths = torch.full((B,), S, dtype=torch.int32, device="cuda")
-        lg, cache, _ = fns.prefill(params, {"tokens": prompt,
-                                            "lengths": lengths}, cache)
-        out = [lg]
-        for i in range(steps):
-            lg, cache, _ = fns.decode(params, toks[i], cache, torch.full(
-                (B,), S + i, dtype=torch.int32, device="cuda"))
-            out.append(lg)
+        logits[kvd] = decode_run(fns, params, batch, cache, toks, S)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches, tc = read_counts(counters)
         counts[kvd] = (launches, tc)
         del cache
-        logits[kvd] = torch.stack(out)
         if tuple(logits[kvd].shape) != (steps + 1, B, cfg.vocab_size) or \
                 not torch.isfinite(logits[kvd]).all():
             raise AssertionError(f"qwen1.5-32b ({kvd} cache): logits not "
@@ -2313,15 +2369,9 @@ def qwen15_entry_points(args, cfg, params, counters):
             f"pack_kv {launches['pack_kv']} (one ring write a layer and "
             f"call); peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    ref = logits["bfloat16"].float()
-    diff = float((logits["int8"].float() - ref).abs().max())
-    scale = float(ref.abs().max())
-    if not diff < 0.05 * scale + 0.05:
-        raise AssertionError(f"qwen1.5-32b: int8 against bf16 cache: max "
-                             f"|diff| {diff} >= 0.05 * {scale} + 0.05")
-    log(f"dense_families: qwen1.5-32b: int8 against bf16 cache over the "
-        f"{steps + 1} logits: max |diff| {diff:.4f} < 0.05 * max|bf16| + "
-        f"0.05 = {0.05 * scale + 0.05:.4f} (the reference's bar)")
+    hold_to_bar("dense_families", f"qwen1.5-32b: int8 against bf16 cache "
+                f"over the {steps + 1} logits", logits["int8"],
+                logits["bfloat16"])
     return counts["int8"]
 
 
@@ -2476,6 +2526,407 @@ def dense_families_phase(args, counters):
     return total, total_tc
 
 
+# ------------------------------------------------------------ other families
+OF = "other_families"
+
+
+
+
+def step_line(label, wall, counters):
+    """One step's line: wall time, peak memory since the last reset, and
+    the kernel launches by route since the counts were set to 0."""
+    launches, tc = read_counts(counters)
+    used = {n: v for n, v in launches.items() if v}
+    routes = {n: f"{tc[n]} tensor cores, {launches[n] - tc[n]} CUDA cores"
+              for n in used if n in tc}
+    log(f"{OF}: {label}: {wall:.2f} s wall, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+        f"{used or 'none'}" + (f" ({routes})" if routes else ""))
+    return launches, tc
+
+
+def step_line(label, wall, counters):
+    """One step's line: wall time, peak memory since the last reset, and
+    the kernel launches by route since the counts were set to 0."""
+    launches, tc = read_counts(counters)
+    used = {n: v for n, v in launches.items() if v}
+    routes = {n: f"{tc[n]} tensor cores, {launches[n] - tc[n]} CUDA cores"
+              for n in used if n in tc}
+    log(f"{OF}: {label}: {wall:.2f} s wall, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+        f"{used or 'none'}" + (f" ({routes})" if routes else ""))
+    return launches, tc
+
+
+def hold_to_bar(phase, label, got, ref):
+    """The reference's bar between two logit sets
+    (``tests/test_models.py::test_int8_kv_cache_close_to_bf16``): max |got -
+    ref| < 0.05 * max |ref| + 0.05. Logged; raises when it fails."""
+    if tuple(got.shape) != tuple(ref.shape) or \
+            not (torch.isfinite(got).all() and torch.isfinite(ref).all()):
+        raise AssertionError(f"{phase}: {label}: logits not finite or of "
+                             f"different shapes {tuple(got.shape)}, "
+                             f"{tuple(ref.shape)}")
+    diff = float((got.float() - ref.float()).abs().max())
+    scale = float(ref.float().abs().max())
+    if not diff < 0.05 * scale + 0.05:
+        raise AssertionError(f"{phase}: {label}: max |diff| {diff} >= 0.05 "
+                             f"* {scale} + 0.05")
+    log(f"{phase}: {label}: max |diff| {diff:.4f} < 0.05 * max|ref| + 0.05 "
+        f"= {0.05 * scale + 0.05:.4f} (the reference's bar)")
+
+
+def llava_entry_points(args, cfg, params, counters):
+    """llava-next-34b through ``build_model``'s entry points: prefill of 4
+    sequences of 2880 stand-in patch embeddings (LLaVA-NeXT's any-resolution
+    maximum: a base image and four tiles of 576 patches) into a (4, 4096)
+    cache, then 32 decode steps of random tokens, with a bf16 and an int8
+    cache, held to each other at the reference's bar; then the bf16 run's
+    first decode step against a prefill of the 2880 embeddings and the
+    embedded token (2881 rows). Returns the int8 run's counts."""
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import embed_tokens
+    fns = build_model(cfg)
+    B, S, L, steps = 4, 2880, 4096, 32
+    g = torch.Generator(device="cuda").manual_seed(args.seed + 9)
+    # at the scale of the token embeddings (embed_init: 0.02 * N(0, 1))
+    emb = (torch.randn(B, S, cfg.d_model, generator=g, device="cuda")
+           * 0.02).to(torch.bfloat16)
+    rng = np.random.default_rng(args.seed + 9)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (steps, B)),
+                           dtype=torch.int32, device="cuda")
+    batch = {"embeddings": emb,
+             "lengths": torch.full((B,), S, dtype=torch.int32,
+                                   device="cuda")}
+    logits, counts = {}, {}
+    for kvd in ("bfloat16", "int8"):
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        cache = fns.init_cache(B, L, kv_dtype=kvd, device="cuda")
+        logits[kvd] = decode_run(fns, params, batch, cache, toks, S)
+        torch.cuda.synchronize()
+        del cache
+        counts[kvd] = step_line(
+            f"llava-next-34b entry points, {kvd} cache: prefill of {B} x "
+            f"{S} patch embeddings, {steps} decode steps",
+            time.perf_counter() - t0, counters)
+        launches, tc = counts[kvd]
+        writes = (steps + 1) * cfg.n_layers if kvd == "int8" else 0
+        if launches["flash_decode"] != steps * cfg.n_layers or \
+                launches["pack_kv"] != writes:
+            raise AssertionError(f"{OF}: llava ({kvd} cache): launches "
+                                 f"{launches}; expected flash_decode "
+                                 f"{steps * cfg.n_layers}, pack_kv {writes}")
+        check_routes(f"{OF}: llava entry points ({kvd})", launches, tc,
+                     ("flash_decode",))
+    hold_to_bar(OF, "llava-next-34b, int8 against bf16 cache over the "
+                f"{steps + 1} logits", logits["int8"], logits["bfloat16"])
+    t0 = time.perf_counter()
+    longer = torch.cat([emb, embed_tokens(params["embed"], cfg,
+                                          toks[0][:, None])], dim=1)
+    lg, _, _ = fns.prefill(params, {"embeddings": longer},
+                           fns.init_cache(B, L, device="cuda"))
+    torch.cuda.synchronize()
+    hold_to_bar(OF, f"llava-next-34b, decode after {S} embeddings against "
+                f"a prefill of {S + 1} rows ({time.perf_counter() - t0:.2f} "
+                f"s)", logits["bfloat16"][1], lg)
+    return counts["int8"]
+
+
+def hymba_entry_points(args, cfg, params, counters):
+    """hymba-1.5b through ``build_model``: at B = 2, one decode after a
+    prefill of 1199 tokens against a prefill of 1200 (the mamba state and
+    the 1024-slot rings across the boundary); then the wall time of one
+    prompt's prefill (B = 1, 1400 tokens) and of its mamba branches."""
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as tfm
+    fns = build_model(cfg)
+    B, S, L = 2, 1200, 2048
+    rng = np.random.default_rng(args.seed + 10)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                           dtype=torch.int32, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    lg = decode_run(fns, params, {"tokens": toks[:, :S - 1]},
+                    fns.init_cache(B, L, device="cuda"),
+                    toks[:, S - 1][None], S - 1)[1]
+    full, _, _ = fns.prefill(params, {"tokens": toks},
+                             fns.init_cache(B, L, device="cuda"))
+    torch.cuda.synchronize()
+    launches, tc = step_line(f"hymba-1.5b entry points: prefill {B} x "
+                             f"{S - 1} and one decode, prefill {B} x {S}",
+                             time.perf_counter() - t0, counters)
+    if launches["flash_decode"] != cfg.n_layers:
+        raise AssertionError(f"{OF}: hymba: {launches['flash_decode']} "
+                             f"flash_decode launches, {cfg.n_layers} expected")
+    check_routes(f"{OF}: hymba entry points", launches, tc, ("flash_decode",))
+    hold_to_bar(OF, f"hymba-1.5b, decode after {S - 1} tokens against a "
+                f"prefill of {S}", lg, full)
+    # the prefill of one prompt, and the share of its mamba branches
+    mamba_s = [0.0]
+    block = tfm.mamba_block
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = block(*a, **kw)
+        torch.cuda.synchronize()
+        mamba_s[0] += time.perf_counter() - t
+        return out
+
+    one = toks[:1].repeat(1, 2)[:, :1400]
+    tfm.mamba_block = timed
+    try:
+        t0 = time.perf_counter()
+        fns.prefill(params, {"tokens": one},
+                    fns.init_cache(1, L, device="cuda"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        tfm.mamba_block = block
+    log(f"{OF}: hymba-1.5b prefill of one 1400-token prompt: {wall:.2f} s "
+        f"wall, of which the {cfg.n_layers} mamba branches {mamba_s[0]:.2f} "
+        f"s (a sequential scan of 1400 steps each, plain PyTorch)")
+    return launches, tc
+
+
+def xlstm_entry_points(args, cfg, params):
+    """xlstm-125m through ``build_model``: at B = 4, one decode after a
+    prefill of 511 tokens (its last 128-token chunk padded) against a
+    prefill of 512; then the reference-side fact of the dense engine:
+    the splice of a prefilled state into its slot writes no leaf."""
+    from repro_torch.bridge import tree_leaves
+    from repro_torch.models import build_model
+    from repro_torch.serving import RealModelEngine, Request
+    fns = build_model(cfg)
+    B, S = 4, 512
+    rng = np.random.default_rng(args.seed + 11)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                           dtype=torch.int32, device="cuda")
+    t0 = time.perf_counter()
+    lg = decode_run(fns, params, {"tokens": toks[:, :S - 1]},
+                    fns.init_cache(B, 0, device="cuda"),
+                    toks[:, S - 1][None], S - 1)[1]
+    full, _, _ = fns.prefill(params, {"tokens": toks},
+                             fns.init_cache(B, 0, device="cuda"))
+    torch.cuda.synchronize()
+    log(f"{OF}: xlstm-125m entry points: prefill {B} x {S - 1} and one "
+        f"decode, prefill {B} x {S}: {time.perf_counter() - t0:.2f} s")
+    hold_to_bar(OF, f"xlstm-125m, decode after {S - 1} tokens against a "
+                f"prefill of {S}", lg, full)
+    eng = RealModelEngine(0, cfg, params, max_slots=8, max_len=1088,
+                          device="cuda")
+    before = [t.clone() for t in tree_leaves(eng.cache)]
+    prompt = toks[0].tolist()
+    eng.enqueue(Request(req_id=0, prompt_len=S, max_new_tokens=2,
+                        arrival_time=0.0, prompt_tokens=prompt), 0.0)
+    eng._admit(0.0)
+    spliced = sum(not torch.equal(a, b)
+                  for a, b in zip(before, tree_leaves(eng.cache)))
+    _, own, _ = fns.prefill(params, {"tokens": toks[:1]},
+                            fns.init_cache(1, 0, device="cuda"))
+    own_c = float(own[0]["C"].abs().sum())
+    log(f"{OF}: xlstm-125m: the dense engine spliced {spliced} of "
+        f"{len(before)} state leaves of a {S}-token prefill into its slot "
+        f"(the prefill's own block-0 sum|C| = {own_c:.1f}): the reference's "
+        f"rule writes only leaves whose leading size matches, and xLSTM's "
+        f"(batch, ...) states do not (ROADMAP.md Queue C)")
+    if spliced or not own_c > 0:
+        raise AssertionError(f"{OF}: xlstm: expected no spliced leaf and a "
+                             f"non-zero prefill state ({spliced}, {own_c})")
+
+
+def seamless_entry_points(args, cfg, params):
+    """seamless-m4t-large-v2 through ``build_model``: prefill of 4
+    sequences of 1024 stand-in frames and a 32-token decoder prompt into a
+    cache of 1024 slots, then 32 decode steps with ``enc_lengths`` 1024;
+    the first decode step against a decoder prefill one token longer."""
+    from repro_torch.models import build_model
+    fns = build_model(cfg)
+    B, S_src, S, L, steps = 4, 1024, 32, 1024, 32
+    g = torch.Generator(device="cuda").manual_seed(args.seed + 12)
+    frames = torch.randn(B, S_src, cfg.d_model, generator=g,
+                         device="cuda").to(torch.bfloat16)
+    rng = np.random.default_rng(args.seed + 12)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S + 1)),
+                             dtype=torch.int32, device="cuda")
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (steps, B)),
+                           dtype=torch.int32, device="cuda")
+    toks[0] = prompt[:, S]
+    enc_lengths = torch.full((B,), S_src, dtype=torch.int32, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cache = fns.init_cache(B, L, device="cuda")
+    lg = decode_run(fns, params, {"embeddings": frames,
+                                  "tokens": prompt[:, :S]}, cache, toks, S,
+                    enc_lengths=enc_lengths)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cache_gib = sum(t.numel() * t.element_size()
+                    for t in cache.values()) / 2**30
+    del cache
+    if tuple(lg.shape) != (steps + 1, B, cfg.vocab_size) or \
+            not torch.isfinite(lg).all():
+        raise AssertionError(f"{OF}: seamless: logits not finite or of "
+                             f"shape {tuple(lg.shape)}")
+    log(f"{OF}: seamless-m4t-large-v2 entry points: encoder over {B} x "
+        f"{S_src} frames, decoder prefill of {B} x {S}, {steps} decode "
+        f"steps with enc_lengths {S_src}: {wall:.2f} s wall, a {cache_gib:.2f}"
+        f" GiB cache, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    full, _, _ = fns.prefill(params, {"embeddings": frames,
+                                      "tokens": prompt},
+                             fns.init_cache(B, L, device="cuda"))
+    hold_to_bar(OF, f"seamless-m4t-large-v2, decode after a {S}-token "
+                f"prompt against a decoder prefill of {S + 1}", lg[1], full)
+
+
+def other_families_twins():
+    """Float32 twins of the four families at their smoke sizes, card against
+    CPU: the entry points (prefill, then 4 decode steps; llava from
+    embeddings, hymba past its 16-slot ring, xlstm past its 16-token chunk,
+    seamless with encoder lengths) within 1e-4; for llava, hymba and xlstm,
+    ``serve_real_cluster`` over two dense engines with the same tokens and
+    Algorithm-1 decisions on both."""
+    from repro_torch.bridge import tree_map
+    from repro_torch.configs import get_smoke_config, reduced
+    from repro_torch.models import build_model
+    keys = ("decisions", "per_engine", "unfinished", "migrations", "rounds")
+    for arch in ("llava-next-34b", "hymba-1.5b", "xlstm-125m",
+                 "seamless-m4t-large-v2"):
+        cfg = reduced(get_smoke_config(arch), dtype="float32")
+        fns = build_model(cfg)
+        params = fns.init(torch.Generator().manual_seed(0), device="cpu")
+        params_gpu = tree_map(lambda t: t.to("cuda"), params)
+        rng = np.random.default_rng(3)
+        B, S, steps = 2, 27, 4
+        batch = {"tokens": torch.as_tensor(
+            rng.integers(0, cfg.vocab_size, (B, S)), dtype=torch.int32)}
+        kw = {}
+        if cfg.input_mode == "embeddings":
+            batch["embeddings"] = torch.as_tensor(
+                rng.normal(size=(B, S, cfg.d_model)), dtype=torch.float32)
+            if cfg.family == "encdec":
+                kw["enc_lengths"] = torch.tensor([S - 5, S],
+                                                 dtype=torch.int32)
+            else:
+                del batch["tokens"]
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (steps, B)),
+                               dtype=torch.int32)
+        out = {}
+        for dev, p in (("cpu", params), ("cuda", params_gpu)):
+            out[dev] = decode_run(
+                fns, p, {k: v.to(dev) for k, v in batch.items()},
+                fns.init_cache(B, 48, device=dev), toks.to(dev), S,
+                **{k: v.to(dev) for k, v in kw.items()}).cpu()
+        err = max_err(out["cuda"], out["cpu"])
+        if not err <= TOL["float32"]:
+            raise AssertionError(f"{OF}: float32 twin {arch}: card and CPU "
+                                 f"logits differ by {err}")
+        line = (f"{OF}: float32 twin {arch}: entry points card against CPU, "
+                f"max |diff| {err:.2e} over {steps + 1} logit sets")
+        if cfg.family != "encdec":
+            sv = {}
+            for dev, p in (("cpu", params), ("cuda", params_gpu)):
+                reqs = make_requests(cfg, 8, 6, 30, 5, seed=7, gap=0.1)
+                res = serve_dense_cluster(cfg, p, reqs, device=dev,
+                                          ragged=True, max_slots=4,
+                                          max_len=64)[0]
+                sv[dev] = ([r.full_output_tokens for r in reqs],
+                           {k: res.signals[k] for k in keys})
+            (toks_c, sig_c), (toks_g, sig_g) = sv["cpu"], sv["cuda"]
+            if toks_c != toks_g or sig_c != sig_g or sig_g["unfinished"]:
+                diff = [k for k in keys if sig_c[k] != sig_g[k]]
+                raise AssertionError(f"{OF}: float32 twin {arch} (dense "
+                                     f"cluster): card and CPU disagree "
+                                     f"(tokens equal: {toks_c == toks_g}; "
+                                     f"signals that differ: {diff})")
+            line += (f"; serve_real_cluster over two dense engines gives the "
+                     f"same {sum(map(len, toks_c))} tokens, decisions "
+                     f"{sig_g['decisions']}, {sig_g['rounds']} rounds")
+        log(line)
+
+
+def other_families_phase(args, counters):
+    """The other four families at full width on the card, each family's
+    weights freed before the next: llava-next-34b at 30 of its 60 layers
+    (entry points from patch embeddings with bf16 and int8 caches, then two
+    dense engines); hymba-1.5b (two dense engines of 2048 tokens a slot,
+    prompts that overflow the 1024-slot rings, then the entry points);
+    xlstm-125m (entry points, the splice fact, two dense engines);
+    seamless-m4t-large-v2 (entry points); then the float32 twins. Returns
+    the phase's summed (launches, tensor-core launches)."""
+    from repro_torch.configs import get_config, reduced
+    total, total_tc = {}, {}
+
+    def add(counts):
+        for acc, c in zip((total, total_tc), counts):
+            for k, v in c.items():
+                acc[k] = acc.get(k, 0) + v
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def dense_serve(label, cfg, params, reqs, max_len, needed):
+        add(family_serve(
+            f"{label}, dense caches (8 slots x {max_len})", cfg, reqs,
+            counters, lambda: serve_dense_cluster(
+                cfg, params, reqs, device="cuda", ragged=True, max_slots=8,
+                max_len=max_len)[:3], needed, mains=needed, phase=OF))
+
+    full = get_config("llava-next-34b")
+    cfg = reduced(full, n_layers=30)
+    log(f"{OF}: llava-next-34b: reduced n_layers {full.n_layers}→"
+        f"{cfg.n_layers} (width unchanged; "
+        f"{full.param_count() * 2 / 2**30:.1f} GiB of bf16 weights at full "
+        f"depth do not fit one 80 GB card)")
+    params = init_family(cfg, args.seed, "llava-next-34b", OF)
+    add(llava_entry_points(args, cfg, params, counters))
+    free()
+    reqs = make_requests(cfg, 8, 256, 1024, 32, seed=args.seed + 13,
+                         gap=0.1)
+    dense_serve("llava-next-34b", cfg, params, reqs, 1088, ("flash_decode",))
+    del params
+    free()
+
+    cfg = get_config("hymba-1.5b")
+    params = init_family(cfg, args.seed, "hymba-1.5b", OF)
+    rings = sorted({min(cfg.sliding_window, 2048) if cfg.is_local_layer(j)
+                    else 2048 for j in range(cfg.n_layers)})
+    glob = [j for j in range(cfg.n_layers) if not cfg.is_local_layer(j)]
+    reqs = make_requests(cfg, 8, 900, 1400, 32, seed=args.seed + 14,
+                         gap=0.1)
+    if rings != [1024, 2048] or not any(r.prompt_len > 1024 for r in reqs):
+        raise AssertionError(f"{OF}: hymba: expected 1024-slot local rings "
+                             f"that a prompt overflows, got {rings}")
+    log(f"{OF}: hymba-1.5b: global layers {glob}, the other "
+        f"{cfg.n_layers - len(glob)} local with a {rings[0]}-slot ring")
+    dense_serve("hymba-1.5b", cfg, params, reqs, 2048, ("flash_decode",))
+    add(hymba_entry_points(args, cfg, params, counters))
+    del params
+    free()
+
+    cfg = get_config("xlstm-125m")
+    params = init_family(cfg, args.seed, "xlstm-125m", OF)
+    xlstm_entry_points(args, cfg, params)
+    reqs = make_requests(cfg, 8, 256, 1024, 32, seed=args.seed + 15,
+                         gap=0.1)
+    dense_serve("xlstm-125m", cfg, params, reqs, 1088, ())
+    del params
+    free()
+
+    cfg = get_config("seamless-m4t-large-v2")
+    params = init_family(cfg, args.seed, "seamless-m4t-large-v2", OF)
+    seamless_entry_points(args, cfg, params)
+    del params
+    free()
+    other_families_twins()
+    return total, total_tc
+
+
 def main() -> int:
     args = parse_args()
     if not torch.cuda.is_available():
@@ -2539,6 +2990,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     df_launches, df_tc = dense_families_phase(args, counters)
     phase_done("dense_families")
+    gc.collect()
+    torch.cuda.empty_cache()
+    of_launches, of_tc = other_families_phase(args, counters)
+    phase_done("other_families")
     # each kernel's main-path count: the dense cluster serve for the two
     # kernels of the dense plane, the paged cluster serve for the others
     main_launches = dict(launches, flash_decode=dense_launches["flash_decode"],
@@ -2575,7 +3030,8 @@ def main() -> int:
                        "dense_cluster_serve": dense_tc[name],
                        "scenario_serve": scen_tc.get(name, 0),
                        "llama4_serve": l4_tc.get(name, 0),
-                       "dense_families": df_tc.get(name, 0)}}
+                       "dense_families": df_tc.get(name, 0),
+                       "other_families": of_tc.get(name, 0)}}
         kernels.append({
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1], "launches": main_launches[name],
@@ -2584,7 +3040,8 @@ def main() -> int:
                                  "dense_cluster_serve": dense_launches[name],
                                  "scenario_serve": scen_launches.get(name, 0),
                                  "llama4_serve": l4_launches.get(name, 0),
-                                 "dense_families": df_launches.get(name, 0)},
+                                 "dense_families": df_launches.get(name, 0),
+                                 "other_families": of_launches.get(name, 0)},
             "max_abs_err": max(r["err"] for dt, r in rows
                                if dt.split("/")[0] in ("bfloat16", "int32")),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],

@@ -3,9 +3,12 @@
 ``config_from_dict`` rebuilds a :class:`ModelConfig` from
 ``dataclasses.asdict`` of the reference's config; ``params_from_numpy`` /
 ``params_to_numpy`` convert a params tree leaf by leaf, keeping every shape
-and the nested-dict layout (``embed/...``, ``blocks/pos{j}/...`` stacked
-``(n_super, ...)``, ``final_norm``), so expert migration and weight
-comparison stay one-to-one between the two packages.
+and the nesting of dicts and lists (the transformer's ``embed/...``,
+``blocks/pos{j}/...`` stacked ``(n_super, ...)``, ``final_norm``; xLSTM's
+lists ``blocks`` and ``block_norms``, one entry a block; the
+encoder-decoder's ``enc``/``dec`` stacked ``(n_layers, ...)``), so expert
+migration and weight comparison stay one-to-one between the two
+packages.
 
 bfloat16 leaves arrive as numpy arrays of the ``ml_dtypes`` bfloat16 type,
 which ``torch.from_numpy`` refuses. They cross as their raw 16-bit pattern
@@ -32,15 +35,21 @@ def config_from_dict(d: Dict[str, Any]) -> ModelConfig:
 
 
 def tree_map(fn, tree):
-    """Apply ``fn`` to every leaf of a nested dict."""
+    """Apply ``fn`` to every leaf of a nesting of dicts and lists, keeping
+    the nesting."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
     return fn(tree)
 
 
 def tree_leaves(tree):
+    """The leaves of a nesting of dicts and lists, in order."""
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in tree_leaves(v)]
     return [tree]
 
 
@@ -66,11 +75,12 @@ def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def params_from_numpy(tree, device="cuda"):
-    """Nested dict of arrays (numpy, or anything ``np.asarray`` takes) ->
-    the same nested dict of tensors on ``device``."""
+    """Nested dicts and lists of arrays (numpy, or anything ``np.asarray``
+    takes) -> the same nesting of tensors on ``device``."""
     return tree_map(lambda a: _leaf_to_torch(a, device), tree)
 
 
 def params_to_numpy(tree):
-    """Nested dict of tensors -> the same nested dict of numpy arrays."""
+    """Nested dicts and lists of tensors -> the same nesting of numpy
+    arrays."""
     return tree_map(_leaf_to_numpy, tree)

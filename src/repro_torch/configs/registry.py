@@ -14,6 +14,10 @@ _ARCHS: Dict[str, str] = {
     "qwen3-8b": "qwen3_8b",
     "qwen1.5-32b": "qwen1_5_32b",
     "gemma3-12b": "gemma3_12b",
+    "xlstm-125m": "xlstm_125m",
+    "hymba-1.5b": "hymba_1_5b",
+    "llava-next-34b": "llava_next_34b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
 }
 
 

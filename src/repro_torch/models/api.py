@@ -2,12 +2,14 @@
 functions have the same signatures for every ported family, so the serving
 engine never branches on architecture.
 
-Ported: the decoder-only ``dense`` and ``moe`` families. ``init`` takes an
-explicit ``torch.Generator`` and a device; ``init_cache`` takes the device
-as a keyword (default ``cuda``).
+Every family of the reference: ``dense``, ``moe``, ``vlm`` and ``hybrid``
+(``models/transformer.py``), ``ssm`` (``models/xlstm.py``) and ``encdec``
+(``models/encdec.py``). ``init`` takes an explicit ``torch.Generator`` and
+a device; ``init_cache`` takes the device as a keyword (default ``cuda``).
 """
 from __future__ import annotations
 
+import importlib
 from typing import Any, Callable, NamedTuple
 
 from repro_torch.configs.base import ModelConfig
@@ -27,11 +29,16 @@ def _loss_not_ported(params, batch, **kw):
                               "Queue A item 10)")
 
 
+_FAMILY_MODULES = {"dense": "transformer", "moe": "transformer",
+                   "vlm": "transformer", "hybrid": "transformer",
+                   "ssm": "xlstm", "encdec": "encdec"}
+
+
 def build_model(cfg: ModelConfig) -> ModelFns:
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(f"model family {cfg.family!r} is not "
-                                  "ported yet (ROADMAP.md Queue A item 9)")
-    from repro_torch.models import transformer as m
+    if cfg.family not in _FAMILY_MODULES:
+        raise ValueError(f"unknown family {cfg.family!r}")
+    m = importlib.import_module(
+        f"repro_torch.models.{_FAMILY_MODULES[cfg.family]}")
     return ModelFns(
         cfg=cfg,
         init=lambda generator, device="cuda": m.init_params(

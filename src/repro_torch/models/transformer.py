@@ -1,5 +1,5 @@
-"""Decoder-only transformer (dense and MoE families): the serving data
-planes' model entry points.
+"""Decoder-only transformer (dense, MoE, VLM and hybrid families): the
+serving data planes' model entry points.
 
 Layers are grouped into *super-blocks* (period P = lcm(moe_every,
 local_ratio + 1)); params and page pools are stacked ``(n_super, ...)`` per
@@ -12,15 +12,19 @@ Three paged entry points: ``prefill_chunk_paged`` (chunked prefill of B
 lanes), ``decode_step_paged`` (one token per lane through the paged decode
 kernel) and ``mixed_step_paged`` (both in one dispatch). Two dense-cache
 entry points, for the slot-indexed plane (``serving/real_engine.py``):
-``prefill`` (S tokens into a fresh ``(B, L)`` cache, a ring when L < S)
-and ``decode_step`` (one token per row through the flash-decode kernel).
+``prefill`` (S tokens, or S rows of ``batch["embeddings"]`` for a VLM
+config, into a fresh ``(B, L)`` cache, a ring when L < S) and
+``decode_step`` (one token per row through the flash-decode kernel). A
+hybrid layer (hymba) runs a mamba branch beside attention on the same
+normed input (``models/ssm.py``); its state lives in the dense cache
+(``mamba_h``, ``mamba_conv``), which prefill writes from a zero state and
+decode carries.
 All of them update the KV cache **in place** and also return it, so a
 caller may keep reassigning its cache from the return value as with the
 reference. ``ragged`` picks the MoE dispatch of every layer: the ragged
 path (default) or the capacity-padded one.
 
-Training and the other model families are later slices (ROADMAP.md
-Queue A).
+Training is a later slice (ROADMAP.md Queue A).
 """
 from __future__ import annotations
 
@@ -42,6 +46,7 @@ from repro_torch.models.attention import (decode_attention,
 from repro_torch.models.layers import (apply_rope, dense_init, embed_tokens,
                                        init_embed, init_mlp, lm_logits, mlp,
                                        rms_norm, torch_dtype)
+from repro_torch.models.ssm import init_mamba, mamba_block
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,10 +98,8 @@ def init_attention(cfg: ModelConfig, *, generator, device):
 
 def init_layer(cfg: ModelConfig, desc: LayerDesc, *, generator, device):
     """A local (sliding-window) layer has the same leaves as a global one;
+    a hybrid layer adds the mamba branch and the two branch norms;
     ``post_norms`` (gemma2/3) adds the post-attention and post-FFN norms."""
-    if desc.hybrid:
-        raise NotImplementedError(f"{cfg.name}: the hybrid (mamba) layer is "
-                                  "not ported yet (ROADMAP.md Queue A item 9)")
     kw = dict(generator=generator, device=device)
     p: Dict[str, Any] = {
         "ln_attn": torch.zeros(cfg.d_model, device=device),
@@ -108,6 +111,12 @@ def init_layer(cfg: ModelConfig, desc: LayerDesc, *, generator, device):
     else:
         p["mlp"] = init_mlp(cfg.d_model, cfg.d_ff, torch_dtype(cfg.dtype),
                             **kw)
+    if desc.hybrid:
+        p["mamba"] = init_mamba(cfg.d_model, cfg.ssm.state_dim,
+                                cfg.ssm.conv_width, cfg.ssm.expand,
+                                torch_dtype(cfg.dtype), **kw)
+        p["attn_out_norm"] = torch.zeros(cfg.d_model, device=device)
+        p["mamba_out_norm"] = torch.zeros(cfg.d_model, device=device)
     if cfg.post_norms:
         p["post_attn_norm"] = torch.zeros(cfg.d_model, device=device)
         p["post_ffn_norm"] = torch.zeros(cfg.d_model, device=device)
@@ -122,31 +131,37 @@ def _stack_into(dst, src, i):
         dst[i].copy_(src)
 
 
+def stacked_layers(make, n: int):
+    """``n`` layers from ``make()`` stacked into ``(n, ...)`` leaves, the
+    layout of the reference's ``vmap``-ed init. Each layer is drawn on its
+    own and copied into the stacked leaves, so peak memory is the stack
+    plus one layer; with one layer the stacking dimension is a view of the
+    layer's leaves, and peak memory is the layer plus one draw
+    (``layers.DRAW_BYTES``)."""
+    first = make()
+    if n == 1:
+        return tree_map(lambda a: a[None], first)
+    stacked = tree_map(
+        lambda a: torch.empty((n,) + tuple(a.shape), dtype=a.dtype,
+                              device=a.device), first)
+    _stack_into(stacked, first, 0)
+    del first
+    for i in range(1, n):
+        _stack_into(stacked, make(), i)
+    return stacked
+
+
 def init_params(cfg: ModelConfig, *, generator: torch.Generator,
                 device="cuda"):
-    """Random params in the reference's layout. Each super-block's layer is
-    drawn on its own and copied into the stacked leaves, so peak memory is
-    the model plus one layer; with one super-block the stacking dimension
-    is a view of the layer's leaves, and peak memory is the model plus one
-    draw (``layers.DRAW_BYTES``)."""
+    """Random params in the reference's layout, each within-period
+    position's layers stacked ``(n_super, ...)`` (:func:`stacked_layers`)."""
     descs = period_descriptors(cfg)
     ns = n_super_blocks(cfg)
     kw = dict(generator=generator, device=device)
     embed = init_embed(cfg, **kw)
-    blocks = {}
-    for j, desc in enumerate(descs):
-        first = init_layer(cfg, desc, **kw)
-        if ns == 1:
-            blocks[f"pos{j}"] = tree_map(lambda a: a[None], first)
-            continue
-        stacked = tree_map(
-            lambda a: torch.empty((ns,) + tuple(a.shape), dtype=a.dtype,
-                                  device=a.device), first)
-        _stack_into(stacked, first, 0)
-        del first
-        for i in range(1, ns):
-            _stack_into(stacked, init_layer(cfg, desc, **kw), i)
-        blocks[f"pos{j}"] = stacked
+    blocks = {f"pos{j}": stacked_layers(
+        lambda desc=desc: init_layer(cfg, desc, **kw), ns)
+        for j, desc in enumerate(descs)}
     return {"embed": embed, "blocks": blocks,
             "final_norm": torch.zeros(cfg.d_model, device=device)}
 
@@ -167,7 +182,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
     ``kv_dtype="int8"`` stores int8 k/v and per-(slot, head) f32
     ``k_scale``/``v_scale`` leaves (n_super, batch, L, Hkv)
-    (kernels/kv_pack.py); decode dequantizes on read."""
+    (kernels/kv_pack.py); decode dequantizes on read.
+
+    A hybrid layer's position also holds its mamba state, f32 whatever
+    ``kv_dtype``: ``mamba_h`` (n_super, batch, d_in, N) and ``mamba_conv``
+    (n_super, batch, conv_width - 1, d_in)."""
     ns = n_super_blocks(cfg)
     quant = kv_dtype == "int8"
     dt = torch.int8 if quant else torch_dtype(cfg.dtype)
@@ -181,6 +200,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             for leaf in ("k_scale", "v_scale"):
                 c[leaf] = torch.zeros(shape[:-1], dtype=torch.float32,
                                       device=device)
+        if desc.hybrid:
+            d_in = cfg.ssm.expand * cfg.d_model
+            c["mamba_h"] = torch.zeros((ns, batch, d_in, cfg.ssm.state_dim),
+                                       device=device)
+            c["mamba_conv"] = torch.zeros(
+                (ns, batch, cfg.ssm.conv_width - 1, d_in), device=device)
         cache[f"pos{j}"] = c
     return cache
 
@@ -422,10 +447,26 @@ def attention_block(lp, cfg, desc, x, positions, cache, mode, paged):
 def decoder_layer(lp, cfg, desc, x, positions, cache, mode, placement_row,
                   source_ids, n_sources, collect_stats=True, paged=None,
                   ragged=True):
-    """Returns (x, cache, stats_or_None)."""
+    """Returns (x, cache, stats_or_None). A hybrid layer's mamba branch
+    starts from zeros in prefill and from the cache's state in decode, and
+    writes its final state into the cache in place."""
     attn_out, cache = attention_block(lp, cfg, desc, x, positions, cache,
                                       mode, paged)
-    x = x + attn_out
+    if desc.hybrid:
+        xn = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
+        state = None
+        if mode == "decode":
+            state = {"h": cache["mamba_h"], "conv": cache["mamba_conv"]}
+        m_out, m_state = mamba_block(
+            lp["mamba"], xn, cfg.ssm.state_dim, cfg.ssm.conv_width,
+            state=state, chunk=cfg.ssm.chunk_size, return_state=True)
+        cache["mamba_h"].copy_(m_state["h"])
+        cache["mamba_conv"].copy_(m_state["conv"])
+        # hymba: branch-normalized mean fusion
+        x = x + 0.5 * (rms_norm(attn_out, lp["attn_out_norm"], cfg.norm_eps)
+                       + rms_norm(m_out, lp["mamba_out_norm"], cfg.norm_eps))
+    else:
+        x = x + attn_out
     xn = rms_norm(x, lp["ln_ffn"], cfg.norm_eps)
     stats = None
     if desc.moe:
@@ -612,6 +653,14 @@ def _stack_forward(params, cfg, x, positions, cache, mode, placement,
     return x, cache, stats
 
 
+def _inputs_to_embed(params, cfg, batch):
+    """A VLM config's ``batch["embeddings"]`` (B, S, D) where given, else
+    the embedded ``batch["tokens"]``."""
+    if cfg.input_mode == "embeddings" and "embeddings" in batch:
+        return batch["embeddings"]
+    return embed_tokens(params["embed"], cfg, batch["tokens"])
+
+
 def prefill_chunk_paged(params, cfg: ModelConfig, batch, pages, *,
                         block_tables, placement=None, source_ids=None,
                         n_sources: int = 0, collect_stats: bool = True,
@@ -626,8 +675,7 @@ def prefill_chunk_paged(params, cfg: ModelConfig, batch, pages, *,
     (logits_at_chunk_end (B, V), pages, stats); logits are only meaningful
     when the chunk completes the prompt.
     """
-    tokens = batch["tokens"]
-    x = embed_tokens(params["embed"], cfg, tokens)
+    x = _inputs_to_embed(params, cfg, batch)
     B, S = x.shape[:2]
     dev = x.device
     starts = batch["chunk_starts"].to(torch.int32)
@@ -703,10 +751,11 @@ def decode_step_paged(params, cfg: ModelConfig, tokens, pages, lengths, *,
 def prefill(params, cfg: ModelConfig, batch, cache, *, placement=None,
             source_ids=None, n_sources: int = 0, collect_stats: bool = True,
             ragged: bool = True):
-    """batch: {tokens (B, S), lengths (B,) optional} -> (logits at each
-    row's last real token (B, V), cache, stats). Positions run 0..S-1; the
-    cache (from :func:`init_cache`) is written in place."""
-    x = embed_tokens(params["embed"], cfg, batch["tokens"])
+    """batch: {tokens (B, S) or, for a VLM config, embeddings (B, S, D);
+    lengths (B,) optional} -> (logits at each row's last real token (B, V),
+    cache, stats). Positions run 0..S-1; the cache (from
+    :func:`init_cache`) is written in place."""
+    x = _inputs_to_embed(params, cfg, batch)
     B, S = x.shape[:2]
     dev = x.device
     positions = torch.arange(S, dtype=torch.int32, device=dev)[None] \

@@ -4,8 +4,11 @@ Same control-plane surface as the paged engine (traces, queue policy, KV
 accounting, routing statistics), but the model's KV cache is one dense
 ``(max_slots, max_len)`` row per request: one-shot prefill of each admitted
 request into a one-row cache spliced into its slot, then one batched decode
-step over every slot per engine step (``models/transformer.py::prefill`` and
-``decode_step``, decode attention through the flash-decode kernel).
+step over every slot per engine step (the model's ``build_model`` entry
+points: ``models/transformer.py::prefill`` and ``decode_step`` for the
+decoder families, decode attention through the flash-decode kernel;
+``models/xlstm.py``'s for xLSTM, whose "cache" is its recurrent states,
+which the splice leaves in place: ``_splice``).
 Routing statistics are the router's real outputs, so the Gimbal
 coordinator runs unmodified against this plane.
 
@@ -35,6 +38,27 @@ from repro_torch.serving.request import Request, RequestState
 
 def _stats_to_numpy(stats):
     return {k: v.cpu().numpy() for k, v in stats.items()}
+
+
+def _splice(big, small, slot: int) -> None:
+    """Write the one-row prefilled cache ``small`` into slot ``slot`` of
+    ``big``, in place, by the reference's rule (``RealModelEngine.
+    _prefill_into_slot``'s ``put``), over any nesting of dicts and lists: a
+    leaf of ``ndim >= 2`` with the same ``ndim`` and the same leading size
+    as the engine's is written at ``[:, slot]``; every other leaf is left as
+    it was. The transformer's leaves are ``(n_super, batch, ...)``, so all
+    of them are spliced. xLSTM's states are ``(batch, ...)``: their leading
+    sizes differ (1 against ``max_slots``), so none is, and the slot decodes
+    on from its old state, as the reference's does (ROADMAP.md Queue C)."""
+    if isinstance(big, dict):
+        for k in big:
+            _splice(big[k], small[k], slot)
+    elif isinstance(big, list):
+        for b, s in zip(big, small):
+            _splice(b, s, slot)
+    elif big.ndim >= 2 and big.ndim == small.ndim \
+            and small.shape[0] == big.shape[0]:
+        big[:, slot] = small[:, 0]
 
 
 class RealModelEngine:
@@ -127,10 +151,7 @@ class RealModelEngine:
         cache1 = self.fns.init_cache(1, self.max_len, device=self.device)
         logits, cache1, stats = self.fns.prefill(self.params, batch, cache1,
                                                  **self._model_kw(1))
-        # splice the one-row cache into the slot (in place)
-        for name, c in self.cache.items():
-            for leaf, big in c.items():
-                big[:, slot] = cache1[name][leaf][:, 0]
+        _splice(self.cache, cache1, slot)
         self.prefill_dispatches += 1
         self.prefill_lanes_total += 1
         self.total_prefill_tokens += req.prompt_len

@@ -286,7 +286,11 @@ FLASH_TERMS = [(4, 8, 4, 256, 600, 200, 50.0, False),   # gemma2's terms
                (4, 8, 2, 128, 600, 200, 30.0, False),
                (4, 8, 8, 128, 300, 0, 0.0, True),        # int8, G = 1
                (4, 16, 4, 128, 300, 0, 0.0, True),       # int8, G = 4
-               (4, 8, 4, 256, 300, 100, 50.0, True)]     # all three
+               (4, 8, 4, 256, 300, 100, 50.0, True),     # all three
+               (4, 25, 5, 64, 2500, 1024, 0.0, False),   # hymba: G = 5
+               (4, 25, 5, 64, 1024, 0, 0.0, False),
+               (4, 56, 8, 128, 600, 0, 0.0, False),      # llava: G = 7
+               (4, 56, 8, 128, 600, 0, 0.0, True)]
 
 
 @pytest.mark.parametrize("route", ["float32", "bfloat16", "bfloat16 q off"])

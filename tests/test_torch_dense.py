@@ -183,8 +183,21 @@ def test_build_model_and_what_is_not_ported(twin):
         "v": ((2, 2, 8, cfg.n_kv_heads, cfg.head_dim), torch.int8),
         "k_scale": ((2, 2, 8, cfg.n_kv_heads), torch.float32),
         "v_scale": ((2, 2, 8, cfg.n_kv_heads), torch.float32)}
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
-        t_build_model(dataclasses.replace(tcfg, family="ssm"))
+    # the other families go where the reference sends them: xlstm for
+    # "ssm" (a list of recurrent states), encdec for "encdec" (cross K/V)
+    for family, kind, keys in (("ssm", list, None),
+                               ("encdec", dict, {"k", "v", "xk", "xv"})):
+        jc = build_model(dataclasses.replace(cfg, family=family)) \
+            .init_cache(2, 8)
+        tc = t_build_model(dataclasses.replace(tcfg, family=family)) \
+            .init_cache(2, 8, device="cpu")
+        assert type(jc) is type(tc) is kind
+        assert len(tc) == len(jc)
+        if keys:
+            assert set(tc) == set(jc) == keys
+    for build, c in ((build_model, cfg), (t_build_model, tcfg)):
+        with pytest.raises(ValueError, match="unknown family"):
+            build(dataclasses.replace(c, family="rnn"))
 
 
 # prompt lengths drawn from a few values: the reference's engine compiles
