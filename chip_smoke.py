@@ -88,7 +88,7 @@
    1024 to 1 global, hd 256) and gemma2-2b (26 layers, softcaps 50 and 30,
    hd 256) over two dense engines of 2048 tokens a slot (prompts of 900 to
    1400 tokens that overflow gemma3's 1024-slot rings, 64 new), where
-   ``flash_decode`` takes the CUDA cores (4 of gemma3's requests, 32 new
+   ``flash_decode`` takes the CUDA cores (2 of gemma3's requests, 16 new
    tokens each, are served again under the profiler); qwen1.5-32b at full
    width and 32
    of its 64 layers through ``build_model``'s entry points (8 prompts of
@@ -122,15 +122,42 @@
    decisions). The kernel phase holds ``flash_decode`` at hymba's and
    llava's shapes (a window of 1024 over 4096 slots; int8) and the dense
    int8 write at llava's 8 KV heads;
-12. prints a ``kernels`` JSON line (all seven kernels), then as its last
-   line ``{"ok": true, "device": {...}}``.
+12. the ``train`` phase, the earlier phases' weights freed first:
+   qwen3-moe-30b-a3b at full width and ``--layers`` of its 48 layers
+   trained through ``build_model(cfg).loss`` and ``make_train_step`` on
+   one fixed batch of 4 x 512 tokens from ``--seed`` (lr 1e-3, bf16 params
+   and moments): 4 steps on the ragged path (the expert GEMMs' forward,
+   its recompute in the backward and dx on the tensor cores; dw in
+   PyTorch ops, as the reference computes it) and a fifth under the
+   profiler, 2 on the padded path from the same init (``moe_gmm`` for the
+   forward, dx and dw), one with int8 moments and int8 gradient
+   compression;
+   every loss finite, the loss falling on the
+   repeated batch, each step's wall and peak memory printed with the
+   bytes of params, grads and moments, the launches held to their exact
+   counts and no decode kernel launched. Then the float32 twins (qwen3-moe
+   on both paths, qwen3-8b, gemma2-2b, hymba-1.5b, xlstm-125m, seamless)
+   card against CPU: the grads of a batch and 3 train steps' losses and
+   params within 1e-4; a resume at smoke size on the card (4 steps
+   straight against 2, a checkpoint, a restore and 2 more: the same bits);
+   and ``python -m repro_torch.launch.train`` (a checkpoint, then
+   ``--resume``), ``python -m repro_torch.examples.quickstart`` and
+   ``python -m repro_torch.examples.fault_tolerance_demo`` (its bit-exact
+   resume assert) as subprocesses on the card. The kernel phase holds the
+   expert GEMMs at the training shapes (the ragged forward and its two dx
+   products with dy rounded to bf16; the padded forward, dx and dw at C =
+   160) and times the ragged dw;
+13. prints a ``kernels`` JSON line (all seven kernels; the train phase's
+   launches under ``launches_by_path``), then as its last line ``{"ok":
+   true, "device": {...}}``.
 
 Adopting a placement moves the experts' weights in place; each serve
 leaves the caller's weights as they were.
 
 The kernel launch counters are set to 0 just before each serve of steps 4,
-6, 7, 9, 10 and 11, of each entry-point run of steps 10 and 11 and of each
-scenario slice of step 8, and read just after;
+6, 7, 9, 10 and 11, of each entry-point run of steps 10 and 11, of each
+scenario slice of step 8 and of each full-width training run of step 12,
+and read just after;
 each serve fails if a kernel of its path was not launched, or if a bf16
 launch of an expert GEMM or of a decode kernel at full width took the CUDA
 cores instead of the tensor cores (at hd 256, which
@@ -378,10 +405,15 @@ def dispatch_layout(T, K, E, D, dtype, g):
     return ragged_dispatch(x, ids, E, row_block=nb)
 
 
-def check_gmm(timer, dtype, T, D, F, which, K=8):
+def check_gmm(timer, dtype, T, D, F, which, K=8, dx=False):
     """qwen3's top-8 of 128 experts (2048 <-> 768), or llama4's top-1 of
     128 (5120 <-> 8192: a 10 GiB bf16 weight stack). The weights are drawn
-    one expert at a time, so the draw's f32 buffer is one expert's."""
+    one expert at a time, so the draw's f32 buffer is one expert's.
+    ``dx``: the product that ``kernels/moe_dispatch.ragged_gmm``'s backward
+    issues for a forward with these weights, the incoming dy (Np, F) in f32
+    rounded to ``dtype`` against a contiguous wᵀ (E, F, D), held to the
+    plain f32 formulation (dy not rounded); the timed call is the
+    kernel's, after the rounding."""
     from repro_torch.kernels.moe_gmm import (moe_gmm_ragged,
                                              moe_gmm_ragged_plain)
     g = torch.Generator(device="cuda").manual_seed(2)
@@ -390,35 +422,41 @@ def check_gmm(timer, dtype, T, D, F, which, K=8):
     w = torch.empty(E, D, F, dtype=dtype, device="cuda")
     for e in range(E):
         w[e] = torch.randn(D, F, generator=g, device="cuda") / np.sqrt(D)
-    args = (disp.xs, w, disp.tile_expert, disp.group_sizes,
-            disp.padded_offsets)
+    x = x_plain = disp.xs
+    if dx:
+        w = w.transpose(1, 2).contiguous()
+        x_plain = torch.randn(disp.xs.shape[0], F, generator=g,
+                              device="cuda")
+        x = x_plain.to(dtype)
+    Din, Dout = w.shape[1:]
+    meta = (disp.tile_expert, disp.group_sizes, disp.padded_offsets)
     nb = disp.row_block
     tc_before = moe_gmm_ragged.tc_launches
-    out = moe_gmm_ragged(*args, n_block=nb)
+    out = moe_gmm_ragged(x, w, *meta, n_block=nb)
     route = route_name(moe_gmm_ragged.tc_launches - tc_before)
-    ref = moe_gmm_ragged_plain(*args, n_block=nb)
+    ref = moe_gmm_ragged_plain(x_plain, w, *meta, n_block=nb)
     torch.cuda.synchronize()
     err = max_err(out, ref)
-    item = disp.xs.element_size()
+    item = x.element_size()
     rows = int(disp.group_sizes.sum())
     hit = int((disp.group_sizes > 0).sum())
-    Np = disp.xs.shape[0]
-    nbytes = rows * D * item + hit * D * F * item + Np * F * 4 \
+    Np = x.shape[0]
+    nbytes = rows * Din * item + hit * Din * Dout * item + Np * Dout * 4 \
         + 4 * (disp.tile_expert.numel() + 2 * E + 1)
-    ops = 2.0 * rows * D * F
+    ops = 2.0 * rows * Din * Dout
     lib = {"library_ms": None}
     if dtype == torch.bfloat16 and hasattr(torch, "_grouped_mm"):
         offs = disp.padded_offsets[1:].contiguous()
         # bf16 out: the library rounds its output to the input type
-        lib = library_times(timer, lambda: torch._grouped_mm(disp.xs, w,
+        lib = library_times(timer, lambda: torch._grouped_mm(x, w,
                                                              offs=offs))
-    run = lambda: moe_gmm_ragged(*args, n_block=nb)  # noqa: E731
-    return {"shape": f"{which}: T={T} K={K} E={E} D={D} F={F} nb={nb} "
-                     f"Np={Np} rows={rows} experts_hit={hit}",
+    run = lambda: moe_gmm_ragged(x, w, *meta, n_block=nb)  # noqa: E731
+    return {"shape": f"{which}: T={T} K={K} E={E} D={Din} F={Dout} "
+                     f"nb={nb} Np={Np} rows={rows} experts_hit={hit}",
             "err": err, "ms": timer(run),
             **device_times(timer, run, ("gmm_",), 1),
-            "plain_ms": timer(lambda: moe_gmm_ragged_plain(*args,
-                                                           n_block=nb)),
+            "plain_ms": timer(lambda: moe_gmm_ragged_plain(
+                x_plain, w, *meta, n_block=nb)),
             "bound": bound_ms(nbytes, ops, str(dtype).split(".")[1]),
             **lib, "route": route}
 
@@ -853,7 +891,55 @@ def kernel_phase():
     llama4_kernel_rows(timer, record)
     dense_families_kernel_rows(timer, record)
     other_families_kernel_rows(timer, record)
+    train_kernel_rows(timer, record)
     return results
+
+
+def time_ragged_dw(timer, T=2048, K=8, D=2048, F=768):
+    """The ragged path's weight gradient (PyTorch ops in the reference's
+    formulation, no kernel of this repository) at the training shapes:
+    its time a call, and two calls' bits, logged."""
+    from repro_torch.kernels.moe_dispatch import ragged_dw
+    g = torch.Generator(device="cuda").manual_seed(6)
+    E = 128
+    disp = dispatch_layout(T, K, E, D, torch.bfloat16, g)
+    dy = torch.randn(disp.xs.shape[0], F, generator=g, device="cuda")
+    run = lambda: ragged_dw(disp.xs, dy, disp.tile_expert,  # noqa: E731
+                            disp.padded_offsets, E,
+                            row_block=disp.row_block)
+    same = torch.equal(run(), run())
+    if not same:
+        raise AssertionError("ragged_dw: two calls on the same inputs "
+                             "differ")
+    log(f"train: ragged dw (PyTorch ops: per-tile f32 bmm in slabs of 64 "
+        f"tiles, runs summed in order) at T={T} K={K} E={E} D={D} F={F}: "
+        f"{timer(run):.4f} ms a call (CUDA events), two calls the same "
+        f"bits")
+
+
+def train_kernel_rows(timer, record):
+    """The expert GEMMs at the train phase's shapes (4 x 512 tokens, top-8
+    of 128 experts, 2048 <-> 768, bf16): the ragged GMM's forward gate/up
+    and its two dx products; the padded GMM's forward, dx (dy @ wᵀ) and dw
+    (xᵀ @ dy) of gate/up at C = 160 (4 rows of 40 slots); the ragged dw's
+    time. The statistics kernel's row at T·K = 16384 (its grid path) is
+    the kernel phase's (2048, 8) row."""
+    dt = "bfloat16"
+    record("moe_gmm_ragged", dt, check_gmm(timer, torch.bfloat16, 2048,
+                                           2048, 768, "train forward "
+                                           "gate/up"))
+    for D, F, proj in ((2048, 768, "gate/up"), (768, 2048, "down")):
+        record("moe_gmm_ragged", dt + "/dx",
+               check_gmm(timer, torch.bfloat16, 2048, D, F,
+                         f"train dx {proj} (dy rounded to bf16)", dx=True))
+    for E, C, D, F, which in (
+            (128, 160, 2048, 768, "train forward gate/up"),
+            (128, 160, 768, 2048, "train dx gate/up (dy @ wT)"),
+            (128, 2048, 160, 768, "train dw gate/up (xT @ dy)")):
+        record("moe_gmm", dt,
+               check_padded_gmm(timer, torch.bfloat16, E, C, D, F, which))
+    time_ragged_dw(timer)
+    torch.cuda.empty_cache()
 
 
 def llama4_kernel_rows(timer, record):
@@ -2498,9 +2584,9 @@ def dense_families_phase(args, counters):
             # hd 256 decode on the CUDA cores, in a serve of half the
             # requests and new tokens: on an H100 the profiler took minutes
             # to aggregate the whole serve's 0.6 M kernel events
-            profiled("dense_families gemma3-12b (4 requests, 32 new)",
+            profiled("dense_families gemma3-12b (2 requests, 16 new)",
                      lambda: "{} rounds".format(gemma_serve(gemma_reqs(
-                         4, 32))[0].signals["rounds"]))
+                         2, 16))[0].signals["rounds"]))
         del params
         free()
 
@@ -2528,21 +2614,6 @@ def dense_families_phase(args, counters):
 
 # ------------------------------------------------------------ other families
 OF = "other_families"
-
-
-
-
-def step_line(label, wall, counters):
-    """One step's line: wall time, peak memory since the last reset, and
-    the kernel launches by route since the counts were set to 0."""
-    launches, tc = read_counts(counters)
-    used = {n: v for n, v in launches.items() if v}
-    routes = {n: f"{tc[n]} tensor cores, {launches[n] - tc[n]} CUDA cores"
-              for n in used if n in tc}
-    log(f"{OF}: {label}: {wall:.2f} s wall, peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
-        f"{used or 'none'}" + (f" ({routes})" if routes else ""))
-    return launches, tc
 
 
 def step_line(label, wall, counters):
@@ -2927,6 +2998,319 @@ def other_families_phase(args, counters):
     return total, total_tc
 
 
+# ------------------------------------------------------------------- train
+TR = "train"
+DECODE_PATH = ("paged_decode", "flash_decode", "pack_kv", "unpack_kv")
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch.bridge import tree_flatten
+    return sum(t.numel() * t.element_size() for t in tree_flatten(tree))
+
+
+def train_steps(label, step_fn, box, batch, n, counters, expected):
+    """``n`` steps of ``step_fn`` on ``batch`` from the state in the list
+    ``box``, which this empties (a step leaves the state it is given as it
+    is, so a reference the caller kept would hold a second train state on
+    the card); each step printed (loss, wall, peak memory since the first).
+    The counts are set to 0 just before the first step and read just after
+    the last. ``expected``: the kernels' launches over the ``n`` steps,
+    each held exactly. Returns (state, losses, launches, tensor-core
+    launches)."""
+    state = box.pop()
+    reset_counts(counters)
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for i in range(n):
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        loss = float(metrics["loss"])           # waits for the step
+        wall = time.perf_counter() - t0
+        losses.append(loss)
+        log(f"{TR}: {label} step {i}: loss {loss:.4f} (ce "
+            f"{float(metrics['ce']):.4f}, aux {float(metrics['aux']):.4f}), "
+            f"{wall:.2f} s wall, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if not np.isfinite(loss):
+            raise AssertionError(f"{TR}: {label} step {i}: loss {loss}")
+    launches, tc = read_counts(counters)
+    for name in counters:
+        if launches[name] != expected.get(name, 0):
+            raise AssertionError(f"{TR}: {label}: {name} launched "
+                                 f"{launches[name]} times in {n} steps, "
+                                 f"expected {expected.get(name, 0)}")
+    log(f"{TR}: {label}: launches "
+        f"{ {k: v for k, v in launches.items() if v} } "
+        f"({ {k: v for k, v in tc.items() if launches[k]} } on the tensor "
+        f"cores), no decode kernel")
+    return state, losses, launches, tc
+
+
+def twin_diff(arch, what, cpu, card):
+    """Max |card - CPU| over two lists of tensors (None where a leaf has no
+    gradient), raising past 1e-4; a bf16 leaf (xLSTM's blocks are bf16
+    whatever the config's dtype) may also differ by one bf16 unit in the
+    last place, as a difference far below 1e-4 can round to the
+    neighbouring bf16 value."""
+    worst = 0.0
+    for a, b in zip(cpu, card):
+        if a is None or b is None:
+            if (a is None) != (b is None):
+                raise AssertionError(f"{TR}: float32 twin {arch}: {what}: a "
+                                     f"leaf has a gradient on one side only")
+            continue
+        d = (a.float() - b.float()).abs()
+        bar = TOL["float32"]
+        if a.dtype == torch.bfloat16:
+            bar = bar + a.float().abs() * 2.0 ** -7
+        if not bool((d <= bar).all()):
+            raise AssertionError(f"{TR}: float32 twin {arch}: {what}: a leaf "
+                                 f"differs by {float(d.max())}")
+        worst = max(worst, float(d.max()))
+    return worst
+
+
+def train_twins(args):
+    """Float32 twins at smoke size, card against CPU, from the same params
+    and batches: the loss and every grad of the first batch, then 3 train
+    steps (fp32 moments), every loss and every final param within 1e-4.
+    The twins train at lr 1e-4: Adam's update m / (sqrt(v) + eps) turns a
+    difference in the last bits of a gradient near 0 into up to 2 lr in
+    the param, which at lr 1e-3 passes 1e-4 on xLSTM's twin; the grads
+    are held directly."""
+    from repro_torch.bridge import tree_flatten, tree_map, tree_unflatten
+    from repro_torch.configs import get_smoke_config, reduced
+    from repro_torch.launch.train import make_batch, step_generator
+    from repro_torch.models import build_model
+    from repro_torch.train import (AdamWConfig, make_train_state,
+                                   make_train_step)
+    for arch, ragged in (("qwen3-moe-30b-a3b", True),
+                         ("qwen3-moe-30b-a3b", False), ("qwen3-8b", True),
+                         ("gemma2-2b", True), ("hymba-1.5b", True),
+                         ("xlstm-125m", True),
+                         ("seamless-m4t-large-v2", True)):
+        cfg = reduced(get_smoke_config(arch), dtype="float32")
+        fns = build_model(cfg)
+        params = fns.init(torch.Generator().manual_seed(args.seed),
+                          device="cpu")
+        ocfg = AdamWConfig(lr=1e-4, moment_dtype="float32")
+        out = {}
+        for dev in ("cpu", "cuda"):
+            p = tree_map(lambda t: t.to(dev), params)
+            live = [t.detach().requires_grad_() for t in tree_flatten(p)]
+            loss, _ = fns.loss(tree_unflatten(p, live), make_batch(
+                cfg, 2, 24, step_generator(args.seed, 0), dev),
+                ragged=ragged)
+            grads = [None if g is None else g.cpu() for g in
+                     torch.autograd.grad(loss, live, allow_unused=True)]
+            del live
+            state = make_train_state(p, ocfg)
+            step = make_train_step(
+                lambda p, b: fns.loss(p, b, ragged=ragged), ocfg)
+            losses = []
+            for i in range(3):
+                state, m = step(state, make_batch(
+                    cfg, 2, 24, step_generator(args.seed, i), dev))
+                losses.append(float(m["loss"]))
+            out[dev] = (losses, grads,
+                        [t.cpu() for t in tree_flatten(state.params)])
+        (lc, gc_, pc), (lg, gg, pg) = out["cpu"], out["cuda"]
+        loss_err = max(abs(a - b) for a, b in zip(lc, lg))
+        if not loss_err <= TOL["float32"]:
+            raise AssertionError(f"{TR}: float32 twin {arch}: losses "
+                                 f"{lg} on the card, {lc} on the CPU")
+        g_err = twin_diff(arch, "grads", gc_, gg)
+        p_err = twin_diff(arch, "params after 3 steps", pc, pg)
+        log(f"{TR}: float32 twin {arch} ({'ragged' if ragged else 'padded'}"
+            f"): card against CPU, grads within {g_err:.2e}, 3 train steps' "
+            f"losses within {loss_err:.2e}, params within {p_err:.2e}")
+
+
+def train_resume(args):
+    """At smoke size in bf16 on the card: 4 steps straight against 2 steps,
+    ``save_checkpoint``, ``restore_checkpoint`` into a fresh state and 2
+    more; every param and moment must be the same bits."""
+    import tempfile
+
+    from repro_torch.bridge import tree_flatten
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.ft import (checkpoint_step, restore_checkpoint,
+                                save_checkpoint)
+    from repro_torch.launch.train import make_batch, step_generator
+    from repro_torch.models import build_model
+    from repro_torch.train import (AdamWConfig, make_train_state,
+                                   make_train_step)
+    cfg = get_smoke_config("qwen3-moe-30b-a3b")
+    fns = build_model(cfg)
+    ocfg = AdamWConfig(lr=1e-3)
+    step = make_train_step(lambda p, b: fns.loss(p, b), ocfg)
+
+    def fresh():
+        return make_train_state(fns.init(
+            torch.Generator("cuda").manual_seed(args.seed), device="cuda"),
+            ocfg)
+
+    def run(state, lo, hi):
+        for i in range(lo, hi):
+            state, _ = step(state, make_batch(
+                cfg, 8, 32, step_generator(args.seed, i), "cuda"))
+        return state
+
+    straight = run(fresh(), 0, 4)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "ckpt")
+        save_checkpoint(path, run(fresh(), 0, 2), step=2)
+        start = checkpoint_step(path)
+        resumed = run(restore_checkpoint(path, fresh()), start, 4)
+    a, b = tree_flatten(straight), tree_flatten(resumed)
+    same = sum(torch.equal(x, y) for x, y in zip(a, b))
+    if same != len(a):
+        raise AssertionError(f"{TR}: resume: {len(a) - same} of {len(a)} "
+                             f"leaves differ from the uninterrupted run")
+    log(f"{TR}: resume (smoke qwen3-moe, bf16, on the card): 4 steps "
+        f"straight and 2 + save + restore + 2 give the same bits in all "
+        f"{len(a)} leaves of the train state")
+
+
+def train_subprocesses():
+    """The CLI (a checkpoint, then a resume from it), quickstart and the
+    fault-tolerance demo as a user runs them, on the card."""
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+
+    def run(args, expect):
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", *args], env=env,
+                             cwd=HERE, capture_output=True, text=True,
+                             timeout=600)
+        if out.returncode or expect not in out.stdout:
+            raise AssertionError(f"{' '.join(args)}: exit {out.returncode}"
+                                 f"\n{out.stdout[-3000:]}\n"
+                                 f"{out.stderr[-4000:]}")
+        line = [ln for ln in out.stdout.splitlines() if expect in ln][-1]
+        log(f"{TR}: python -m {' '.join(args)} on the card: exit 0 in "
+            f"{time.perf_counter() - t0:.1f} s: {line.strip()}")
+
+    with tempfile.TemporaryDirectory() as d:
+        ck = ["--checkpoint", os.path.join(d, "ck"), "--checkpoint-every",
+              "2"]
+        run(["repro_torch.launch.train", "--steps", "4", *ck],
+            "checkpointed at step 4")
+        run(["repro_torch.launch.train", "--steps", "6", "--resume", *ck],
+            "resumed from step 4")
+    run(["repro_torch.examples.quickstart"], "generated token ids")
+    run(["repro_torch.examples.fault_tolerance_demo"],
+        "bit-exact continuation: True")
+
+
+def train_phase(args, counters):
+    """qwen3-moe-30b-a3b at full width and ``--layers`` of its 48 layers
+    trained on the card through ``build_model(cfg).loss`` and
+    ``make_train_step``, on one fixed batch of 4 x 512 tokens from
+    ``--seed``: 4 steps on the ragged path (bf16 params and moments, lr
+    1e-3; the expert GEMMs' forward, recompute and dx on the tensor
+    cores), 2 on the padded path (``moe_gmm`` for the forward, dx and dw),
+    one with int8 moments and int8 gradient compression; then the float32
+    twins card against CPU, the resume's bits, and the CLI, quickstart and
+    the fault-tolerance demo as subprocesses. Returns the summed (launches,
+    tensor-core launches) of the full-width steps."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.train import make_batch, step_generator
+    from repro_torch.models import build_model
+    from repro_torch.train import (AdamWConfig, make_train_state,
+                                   make_train_step)
+    full = get_config("qwen3-moe-30b-a3b")
+    cfg = reduced(full, n_layers=args.layers)
+    L = cfg.n_layers
+    log(f"{TR}: qwen3-moe-30b-a3b: reduced n_layers {full.n_layers}→{L} "
+        f"(width unchanged; params, grads and bf16 moments take 8 bytes a "
+        f"parameter: {full.param_count() * 8 / 2**30:.1f} GiB at full depth "
+        f"do not fit one 80 GB card)")
+    params = init_family(cfg, args.seed, "qwen3-moe-30b-a3b", TR)
+    fns = build_model(cfg)
+    batch = make_batch(cfg, 4, 512, step_generator(args.seed, 0), "cuda")
+    ocfg = AdamWConfig(lr=1e-3)
+    box = [make_train_state(params, ocfg)]
+    del params
+    st = box[0]
+    log(f"{TR}: train state: params {tree_bytes(st.params) / 2**30:.2f} "
+        f"GiB, grads {tree_bytes(st.params) / 2**30:.2f} GiB (the params'"
+        f" dtypes), bf16 moments "
+        f"{tree_bytes((st.opt.mu, st.opt.nu)) / 2**30:.2f} GiB; a "
+        f"checkpoint of it would write {tree_bytes(st) / 2**30:.2f} GiB "
+        f"(not taken at full width)")
+    del st
+    total, total_tc = {}, {}
+
+    def add(launches, tc):
+        for acc, c in ((total, launches), (total_tc, tc)):
+            for k, v in c.items():
+                acc[k] = acc.get(k, 0) + v
+
+    # forward, its recompute in the backward and dx: 3 products each
+    state, losses, launches, tc = train_steps(
+        "ragged, bf16 moments", make_train_step(
+            lambda p, b: fns.loss(p, b), ocfg), box, batch, 4, counters,
+        {"moe_gmm_ragged": 4 * L * 9})
+    check_routes(TR, launches, tc, ("moe_gmm_ragged",))
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{TR}: the loss did not fall on the repeated "
+                             f"batch: {losses}")
+    add(launches, tc)
+    # one more step under the profiler: where a step's device time goes
+    box = [state]
+    del state
+    step_fn = make_train_step(lambda p, b: fns.loss(p, b), ocfg)
+
+    def run():
+        state, m = step_fn(box.pop(), batch)
+        box.append(state)
+        return f"one ragged train step (loss {float(m['loss']):.4f})"
+
+    profiled(f"{TR} step", run)
+    # the padded path from the same init: its first step must lower the
+    # loss as the ragged path's did (a later step of Adam at lr 1e-3 on a
+    # repeated batch may overshoot)
+    box.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    box.append(make_train_state(
+        init_family(cfg, args.seed, "qwen3-moe-30b-a3b", TR), ocfg))
+    # forward, recompute, dx and dw: 3 products each
+    m = cfg.moe
+    C = max(-(-512 * m.top_k * m.capacity_factor // m.n_experts), 4)
+    state, losses, launches, tc = train_steps(
+        f"padded (C = {int(C)} a row), bf16 moments", make_train_step(
+            lambda p, b: fns.loss(p, b, ragged=False), ocfg), box, batch,
+        2, counters, {"moe_gmm": 2 * L * 12})
+    check_routes(TR, launches, tc, ("moe_gmm",))
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{TR}: the padded path's loss did not fall: "
+                             f"{losses}")
+    add(launches, tc)
+    params = state.params
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    i8 = AdamWConfig(lr=1e-3, moment_dtype="int8")
+    box = [make_train_state(params, i8)]
+    del params
+    log(f"{TR}: int8 moments: "
+        f"{tree_bytes(box[0].opt) / 2**30:.2f} GiB with their scales")
+    state, _, launches, tc = train_steps(
+        "ragged, int8 moments, int8 gradient compression", make_train_step(
+            lambda p, b: fns.loss(p, b), i8, grad_compression="int8"),
+        box, batch, 1, counters, {"moe_gmm_ragged": L * 9})
+    add(launches, tc)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_twins(args)
+    train_resume(args)
+    train_subprocesses()
+    return total, total_tc
+
+
 def main() -> int:
     args = parse_args()
     if not torch.cuda.is_available():
@@ -2994,6 +3378,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     of_launches, of_tc = other_families_phase(args, counters)
     phase_done("other_families")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tr_launches, tr_tc = train_phase(args, counters)
+    phase_done("train")
     # each kernel's main-path count: the dense cluster serve for the two
     # kernels of the dense plane, the paged cluster serve for the others
     main_launches = dict(launches, flash_decode=dense_launches["flash_decode"],
@@ -3031,7 +3419,8 @@ def main() -> int:
                        "scenario_serve": scen_tc.get(name, 0),
                        "llama4_serve": l4_tc.get(name, 0),
                        "dense_families": df_tc.get(name, 0),
-                       "other_families": of_tc.get(name, 0)}}
+                       "other_families": of_tc.get(name, 0),
+                       "train": tr_tc.get(name, 0)}}
         kernels.append({
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1], "launches": main_launches[name],
@@ -3041,7 +3430,8 @@ def main() -> int:
                                  "scenario_serve": scen_launches.get(name, 0),
                                  "llama4_serve": l4_launches.get(name, 0),
                                  "dense_families": df_launches.get(name, 0),
-                                 "other_families": of_launches.get(name, 0)},
+                                 "other_families": of_launches.get(name, 0),
+                                 "train": tr_launches.get(name, 0)},
             "max_abs_err": max(r["err"] for dt, r in rows
                                if dt.split("/")[0] in ("bfloat16", "int32")),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],

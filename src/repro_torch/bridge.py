@@ -53,6 +53,43 @@ def tree_leaves(tree):
     return [tree]
 
 
+def tree_flatten(tree) -> list:
+    """The leaves in the reference's pytree order: dict keys sorted, lists,
+    tuples and NamedTuple fields in order, ``None`` holding no leaf (the
+    order of its checkpoints and of ``jax.tree.leaves``). Unlike
+    :func:`tree_leaves`, tuples are nodes here."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_flatten(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_flatten(v)]
+    return [tree]
+
+
+def tree_unflatten(like, leaves):
+    """The nesting of ``like`` (dicts keep their key order) with its leaves
+    taken from ``leaves``, given in :func:`tree_flatten`'s order."""
+    it = iter(leaves)
+
+    def build(t):
+        if t is None:
+            return None
+        if isinstance(t, dict):
+            built = {k: build(t[k]) for k in sorted(t)}
+            return {k: built[k] for k in t}
+        if isinstance(t, tuple) and hasattr(t, "_fields"):
+            return type(t)(*[build(v) for v in t])
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(v) for v in t)
+        return next(it)
+
+    out = build(like)
+    if next(it, None) is not None:
+        raise ValueError("tree_unflatten: more leaves than the tree holds")
+    return out
+
+
 def _leaf_to_torch(arr, device) -> torch.Tensor:
     # a private copy: the port updates tensors in place, and the source may
     # be a read-only view of another framework's buffer

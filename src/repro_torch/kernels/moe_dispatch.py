@@ -11,6 +11,10 @@
   5. **unsort-combine**: gather each token's K expert outputs back and
      reduce them with the router gates.
 
+``ragged_gmm`` is differentiable (dx on the same kernel, dw in PyTorch
+ops, as the reference's ``custom_vjp``), so training takes the ragged
+path too.
+
 Every index array is int32 and identical to the reference's.
 """
 from __future__ import annotations
@@ -19,7 +23,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.kernels.moe_gmm import moe_gmm_ragged
+from repro_torch.kernels.moe_gmm import moe_gmm_ragged, moe_gmm_ragged_plain
 
 
 def pick_row_block(total_rows: int, n_experts: int,
@@ -111,9 +115,101 @@ def ragged_combine(ys, dest, gates):
     return torch.sum(ytok * gates[..., None].to(ytok.dtype), dim=1)
 
 
+# row tiles per weight-grad slab: the backward holds one f32
+# (_DW_CHUNK_TILES, D, F) slab of per-tile products at a time, as the
+# reference's does
+_DW_CHUNK_TILES = 64
+
+
+def ragged_dw(xs, dy, tile_expert, padded_offsets, n_experts: int, *,
+              row_block: int):
+    """The weight gradient of the ragged GMM, the reference's formulation:
+    per-tile outer products ``xs_tileᵀ @ dy_tile`` in f32, in slabs of
+    ``_DW_CHUNK_TILES`` tiles, added into an f32 (E, D, F) sum. No
+    atomics: ``tile_expert`` is nondecreasing, so an expert's tiles are
+    adjacent, and each slab's run of one expert is summed in tile order and
+    added to that expert's sum, the same bits on every call. The tiles'
+    experts and the live row count come to the host once; tiles past
+    ``padded_offsets[E]`` hold only zero rows and are skipped."""
+    nb = row_block
+    D, F = xs.shape[-1], dy.shape[-1]
+    meta = torch.cat([tile_expert.to(torch.int64),
+                      padded_offsets[-1:].to(torch.int64)]).tolist()
+    te, nt = meta[:-1], meta[-1] // nb
+    xb = xs.reshape(-1, nb, D)
+    dyb = dy.reshape(-1, nb, F)
+    dw = torch.zeros((n_experts, D, F), dtype=torch.float32, device=xs.device)
+    for t0 in range(0, nt, _DW_CHUNK_TILES):
+        t1 = min(t0 + _DW_CHUNK_TILES, nt)
+        slab = torch.bmm(xb[t0:t1].transpose(1, 2).float(),
+                         dyb[t0:t1].float())               # (n, D, F)
+        a = t0
+        while a < t1:
+            b = a + 1
+            while b < t1 and te[b] == te[a]:
+                b += 1
+            dw[te[a]] += slab[a - t0:b - t0].sum(dim=0)
+            a = b
+    return dw
+
+
+class _RaggedGMM(torch.autograd.Function):
+    """The ragged GMM and its gradient. ``kernel``: the forward and dx go
+    through ``moe_gmm_ragged`` (the CUDA kernel on a CUDA tensor), else
+    through its plain version (the test twin)."""
+
+    @staticmethod
+    def forward(ctx, xs, w, tile_expert, group_sizes, padded_offsets,
+                row_block, kernel):
+        ctx.save_for_backward(xs, w, tile_expert, group_sizes,
+                              padded_offsets)
+        ctx.row_block, ctx.kernel = row_block, kernel
+        gmm = moe_gmm_ragged if kernel else moe_gmm_ragged_plain
+        return gmm(xs, w, tile_expert, group_sizes, padded_offsets,
+                   n_block=row_block)
+
+    @staticmethod
+    def backward(ctx, dy):
+        xs, w, te, gs, po = ctx.saved_tensors
+        nb = ctx.row_block
+        dxs = dw = None
+        if ctx.needs_input_grad[0]:
+            wt = w.transpose(1, 2).contiguous()                # (E, F, D)
+            if ctx.kernel:
+                # the kernel takes one operand type: dy is rounded to the
+                # weights' (bf16 stays on the tensor cores; f32 is exact)
+                dxs = moe_gmm_ragged(dy.to(w.dtype).contiguous(), wt, te,
+                                     gs, po, n_block=nb)
+            else:
+                dxs = moe_gmm_ragged_plain(dy, wt, te, gs, po, n_block=nb)
+            dxs = dxs.to(xs.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = ragged_dw(xs, dy, te, po, w.shape[0], row_block=nb) \
+                .to(w.dtype)
+        return dxs, dw, None, None, None, None, None
+
+
 def ragged_gmm(xs, w, tile_expert, group_sizes, padded_offsets,
                row_block: int):
-    """Group-sized GMM over the sorted layout -> (Np, F) f32 (forward only;
-    the backward is training work, ROADMAP.md Queue A)."""
-    return moe_gmm_ragged(xs, w, tile_expert, group_sizes, padded_offsets,
-                          n_block=row_block)
+    """Differentiable group-sized GMM over the sorted layout -> (Np, F) f32.
+
+    Forward: ``moe_gmm_ragged`` (the CUDA kernel on a CUDA tensor, its
+    plain version on a CPU tensor). Backward, as the reference's
+    ``custom_vjp``: dx is the same ragged GMM against ``wᵀ`` (a contiguous
+    (E, F, D) copy), on the same kernel, with ``dy`` rounded to the
+    weights' dtype because the kernel takes one operand type (bf16 runs on
+    the tensor cores, f32 on the CUDA cores and loses nothing), cast to
+    ``xs``'s dtype; dw is :func:`ragged_dw` in PyTorch ops, as the
+    reference computes it outside Pallas, cast to ``w``'s dtype. Rows
+    past a group's real size get no dx, as they get no output."""
+    return _RaggedGMM.apply(xs, w, tile_expert, group_sizes, padded_offsets,
+                            row_block, True)
+
+
+def ragged_gmm_plain(xs, w, tile_expert, group_sizes, padded_offsets,
+                     row_block: int):
+    """:func:`ragged_gmm` through the plain versions only, with dx in the
+    f32 formulation (``dy`` not rounded): the twin that the kernels' forward
+    and gradient are held to."""
+    return _RaggedGMM.apply(xs, w, tile_expert, group_sizes, padded_offsets,
+                            row_block, False)

@@ -3,7 +3,8 @@
 * ``moe_gmm``: the capacity-padded batched GEMM ``y[e] = x[e] @ w[e]`` over
   an ``(E, C, D)`` buffer, every capacity slot multiplied (padding
   included); output ``(E, C, F)`` f32. It carries the padded dispatch of
-  ``models/moe.py`` (``moe_layer(ragged=False)``).
+  ``models/moe.py`` (``moe_layer(ragged=False)``), and its gradient goes
+  through the same kernel.
 
 * ``moe_gmm_ragged``: the group-sized ragged GEMM. x is one ``(Np, D)``
   buffer of tokens sorted by expert with block-aligned group starts (see
@@ -11,6 +12,7 @@
   uses the weights of expert ``tile_expert[n]``; tiles past
   ``padded_offsets[E]`` or wholly inside a group's alignment padding give
   0, and so do rows past the group's real size. Output ``(Np, F)`` is f32.
+  Forward only: ``kernels/moe_dispatch.ragged_gmm`` differentiates it.
 
 Each wrapper launches its entry point of ``csrc/moe_gmm.cu`` on a CUDA
 tensor and runs its ``*_plain`` version on a CPU tensor. On the card a
@@ -54,9 +56,9 @@ def moe_gmm_plain(x, w):
     return torch.einsum("ecd,edf->ecf", x.float(), w.float())
 
 
-def moe_gmm(x, w):
-    """x (E, C, D), w (E, D, F) in bf16 or f32 -> (E, C, F) f32. Any C, D
-    and F: the kernel masks the edges itself."""
+def _moe_gmm_launch(x, w):
+    """One product: the kernel on a CUDA tensor, the plain version on a CPU
+    tensor."""
     if x.device.type == "cpu":
         return moe_gmm_plain(x, w)
     if x.device.type != "cuda":
@@ -78,6 +80,41 @@ def moe_gmm(x, w):
     moe_gmm.launches += 1
     moe_gmm.tc_launches += code == TC_CODE
     return out
+
+
+class _MoeGmm(torch.autograd.Function):
+    """The padded product and its gradient, all three products through the
+    same kernel: dx = dy @ wᵀ and dw = xᵀ @ dy, each batched over the
+    experts. The kernel takes one operand type, so the incoming f32 ``dy``
+    is rounded to the inputs' type first; on the padded path it already
+    holds values of that type (``models/moe.py`` casts each product's
+    output to the activation dtype), so nothing is lost. Each gradient is
+    returned in its input's dtype, as ``jnp.einsum``'s is."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _moe_gmm_launch(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.to(x.dtype).contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _moe_gmm_launch(dy, w.transpose(1, 2).contiguous()) \
+                .to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = _moe_gmm_launch(x.transpose(1, 2).contiguous(), dy) \
+                .to(w.dtype)
+        return dx, dw
+
+
+def moe_gmm(x, w):
+    """x (E, C, D), w (E, D, F) in bf16 or f32 -> (E, C, F) f32. Any C, D
+    and F: the kernel masks the edges itself. Differentiable: the backward
+    launches the kernel twice more (``_MoeGmm``)."""
+    return _MoeGmm.apply(x, w)
 
 
 moe_gmm.launches = 0

@@ -5,7 +5,8 @@ engine never branches on architecture.
 Every family of the reference: ``dense``, ``moe``, ``vlm`` and ``hybrid``
 (``models/transformer.py``), ``ssm`` (``models/xlstm.py``) and ``encdec``
 (``models/encdec.py``). ``init`` takes an explicit ``torch.Generator`` and
-a device; ``init_cache`` takes the device as a keyword (default ``cuda``).
+a device; ``init_cache`` takes the device as a keyword (default ``cuda``);
+``loss`` is each family's ``loss_fn``, differentiable by ``torch.autograd``.
 """
 from __future__ import annotations
 
@@ -24,11 +25,6 @@ class ModelFns(NamedTuple):
     init_cache: Callable[..., Any]     # (batch, max_len, **kw) -> cache
 
 
-def _loss_not_ported(params, batch, **kw):
-    raise NotImplementedError("training is not ported yet (ROADMAP.md "
-                              "Queue A item 10)")
-
-
 _FAMILY_MODULES = {"dense": "transformer", "moe": "transformer",
                    "vlm": "transformer", "hybrid": "transformer",
                    "ssm": "xlstm", "encdec": "encdec"}
@@ -43,7 +39,7 @@ def build_model(cfg: ModelConfig) -> ModelFns:
         cfg=cfg,
         init=lambda generator, device="cuda": m.init_params(
             cfg, generator=generator, device=device),
-        loss=_loss_not_ported,
+        loss=lambda params, batch, **kw: m.loss_fn(params, cfg, batch, **kw),
         prefill=lambda params, batch, cache, **kw: m.prefill(
             params, cfg, batch, cache, **kw),
         decode=lambda params, tokens, cache, lengths, **kw: m.decode_step(

@@ -134,3 +134,16 @@ def lm_logits(params, cfg, x):
     else:
         logits = x @ params["lm_head"]
     return softcap(logits.float(), cfg.final_logit_softcap)
+
+
+def cross_entropy(logits, labels, mask=None):
+    """Mean token cross-entropy in f32. logits (..., V), labels (...) int;
+    with ``mask`` (...) the mean over the masked tokens (at least 1)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        m = mask.to(torch.float32)
+        return torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
+    return torch.mean(nll)

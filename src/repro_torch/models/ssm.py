@@ -10,7 +10,8 @@ the chunking is part of the function. sLSTM is a strictly sequential loop
 over time. The Mamba scan is one sequential recurrence whatever the
 chunking (the reference's padded steps have dt = 0 and leave ``h`` as it
 is); here it runs chunk by chunk to bound the memory of the per-step decay
-and input terms, one multiply and one add per token.
+and input terms, one multiply and one add per token (in place when no
+gradient is taken, out of place under autograd).
 
 The reference promotes mixed operand types (a float32 activation against
 the bf16 weights that ``init_mlstm`` / ``init_slstm`` draw by default) to
@@ -293,11 +294,21 @@ def _mamba_scan(xc, dt, Bm, Cm, a_log, d_skip, h, chunk):
         da = torch.exp(dtc[..., None] * neg_a)               # (L, B, d_in, N)
         u = (dtc * xc[:, sl].transpose(0, 1))[..., None] \
             * Bm[:, sl].transpose(0, 1)[:, :, None, :]
-        hs = torch.empty_like(da)
-        for t in range(da.shape[0]):
-            torch.mul(h, da[t], out=hs[t])
-            hs[t] += u[t]
-            h = hs[t]
+        if torch.is_grad_enabled() and (da.requires_grad or u.requires_grad
+                                        or h.requires_grad):
+            # training: the same two ops a step, out of place, so autograd
+            # can take them
+            steps = []
+            for t in range(da.shape[0]):
+                h = h * da[t] + u[t]
+                steps.append(h)
+            hs = torch.stack(steps)
+        else:
+            hs = torch.empty_like(da)
+            for t in range(da.shape[0]):
+                torch.mul(h, da[t], out=hs[t])
+                hs[t] += u[t]
+                h = hs[t]
         ys.append(torch.einsum("lbdn,bln->bld", hs, Cm[:, sl]))
     y = torch.cat(ys, dim=1) + xc * d_skip
     return y, h

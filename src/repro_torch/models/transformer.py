@@ -24,7 +24,12 @@ caller may keep reassigning its cache from the return value as with the
 reference. ``ragged`` picks the MoE dispatch of every layer: the ragged
 path (default) or the capacity-padded one.
 
-Training is a later slice (ROADMAP.md Queue A).
+``loss_fn`` is the training entry point: causal attention over the whole
+sequence (mode ``"train"``, no cache), each super-block recomputed in the
+backward (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``),
+the token cross-entropy plus 0.01 times the mean router aux loss. Both
+MoE dispatch paths are differentiable (``kernels/moe_dispatch.ragged_gmm``,
+``kernels/moe_gmm.moe_gmm``).
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ from math import gcd
 from typing import Any, Dict, List
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.bridge import tree_leaves, tree_map
 from repro_torch.configs.base import ModelConfig
@@ -43,9 +49,9 @@ from repro_torch.kernels.paged_decode import paged_decode
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import (decode_attention,
                                           flash_attention, ring_positions)
-from repro_torch.models.layers import (apply_rope, dense_init, embed_tokens,
-                                       init_embed, init_mlp, lm_logits, mlp,
-                                       rms_norm, torch_dtype)
+from repro_torch.models.layers import (apply_rope, cross_entropy, dense_init,
+                                       embed_tokens, init_embed, init_mlp,
+                                       lm_logits, mlp, rms_norm, torch_dtype)
 from repro_torch.models.ssm import init_mamba, mamba_block
 
 
@@ -149,6 +155,18 @@ def stacked_layers(make, n: int):
     for i in range(1, n):
         _stack_into(stacked, make(), i)
     return stacked
+
+
+def layer_views(stacked):
+    """``i -> `` the i-th layer of a tree of ``(n, ...)``-stacked leaves.
+    With grads on, each leaf is unbound once, so its backward stacks the
+    layers' grads once; ``a[i]`` per layer would give every layer a
+    leaf-sized zero grad to add into."""
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in tree_leaves(stacked)):
+        parts = tree_map(lambda a: a.unbind(0), stacked)
+        return lambda i: tree_map(lambda p: p[i], parts)
+    return lambda i: tree_map(lambda a: a[i], stacked)
 
 
 def init_params(cfg: ModelConfig, *, generator: torch.Generator,
@@ -424,14 +442,21 @@ def _dense_attention(cfg, desc, q, k, v, positions, cache, mode):
 
 
 def attention_block(lp, cfg, desc, x, positions, cache, mode, paged):
-    """x: (B, S, D); positions (B, S). Returns (attn_out, cache)."""
-    if mode not in ("prefill", "decode", "paged_prefill", "paged_decode"):
-        raise NotImplementedError(f"attention mode {mode!r} is not ported "
-                                  "yet (ROADMAP.md Queue A item 10)")
+    """x: (B, S, D); positions (B, S). Returns (attn_out, cache). Mode
+    ``"train"``: causal attention over the S tokens with the layer's window
+    and softcap, no cache."""
+    if mode not in ("train", "prefill", "decode", "paged_prefill",
+                    "paged_decode"):
+        raise ValueError(f"unknown attention mode {mode!r}")
     B, S, _ = x.shape
     xn = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
     q, k, v = _qkv(lp["attn"], cfg, xn, positions)
-    if mode in ("prefill", "decode"):
+    if mode == "train":
+        out = flash_attention(q, k, v, q_pos=positions, k_pos=positions,
+                              causal=True,
+                              window=cfg.sliding_window if desc.local else 0,
+                              softcap_val=cfg.attn_logit_softcap)
+    elif mode in ("prefill", "decode"):
         out, cache = _dense_attention(cfg, desc, q, k, v, positions, cache,
                                       mode)
     else:
@@ -448,8 +473,9 @@ def decoder_layer(lp, cfg, desc, x, positions, cache, mode, placement_row,
                   source_ids, n_sources, collect_stats=True, paged=None,
                   ragged=True):
     """Returns (x, cache, stats_or_None). A hybrid layer's mamba branch
-    starts from zeros in prefill and from the cache's state in decode, and
-    writes its final state into the cache in place."""
+    starts from zeros in prefill and train and from the cache's state in
+    decode, and in prefill and decode writes its final state into the cache
+    in place."""
     attn_out, cache = attention_block(lp, cfg, desc, x, positions, cache,
                                       mode, paged)
     if desc.hybrid:
@@ -460,8 +486,9 @@ def decoder_layer(lp, cfg, desc, x, positions, cache, mode, placement_row,
         m_out, m_state = mamba_block(
             lp["mamba"], xn, cfg.ssm.state_dim, cfg.ssm.conv_width,
             state=state, chunk=cfg.ssm.chunk_size, return_state=True)
-        cache["mamba_h"].copy_(m_state["h"])
-        cache["mamba_conv"].copy_(m_state["conv"])
+        if mode in ("prefill", "decode"):
+            cache["mamba_h"].copy_(m_state["h"])
+            cache["mamba_conv"].copy_(m_state["conv"])
         # hymba: branch-normalized mean fusion
         x = x + 0.5 * (rms_norm(attn_out, lp["attn_out_norm"], cfg.norm_eps)
                        + rms_norm(m_out, lp["mamba_out_norm"], cfg.norm_eps))
@@ -626,24 +653,31 @@ def superblock_forward(blk_params, cfg, descs, x, positions, blk_cache,
 
 def _stack_forward(params, cfg, x, positions, cache, mode, placement,
                    source_ids, n_sources, collect_stats, paged=None,
-                   ragged=True):
+                   ragged=True, remat=False):
     """Loop over super-blocks. x: (B, S, D). The KV cache or page pool is
-    written in place. Returns (x, cache, stats (ns * mp, ...))."""
+    written in place. ``remat``: each super-block's activations are
+    recomputed in the backward instead of kept
+    (``torch.utils.checkpoint``), so the kernels of a super-block launch
+    twice a training step. Returns (x, cache, stats (ns * mp, ...))."""
     descs = period_descriptors(cfg)
     ns = n_super_blocks(cfg)
     mp = len(_moe_positions(descs))
     placement_r = None
     if mp and placement is not None and placement.numel():
         placement_r = placement.reshape(ns, mp, -1)
+    block = layer_views(params["blocks"])
     per_block = []
     for i in range(ns):
-        blk_params = tree_map(lambda a: a[i], params["blocks"])
         blk_cache = tree_map(lambda a: a[i], cache) \
             if cache is not None else None
-        x, stats = superblock_forward(
-            blk_params, cfg, descs, x, positions, blk_cache, mode,
-            placement_r[i] if placement_r is not None else None,
-            source_ids, n_sources, collect_stats, paged, ragged)
+        args = (block(i), cfg, descs, x, positions, blk_cache, mode,
+                placement_r[i] if placement_r is not None else None,
+                source_ids, n_sources, collect_stats, paged, ragged)
+        if remat:
+            x, stats = checkpoint(superblock_forward, *args,
+                                  use_reentrant=False)
+        else:
+            x, stats = superblock_forward(*args)
         per_block.append(stats)
     stats = None
     if per_block and per_block[0] is not None:
@@ -659,6 +693,32 @@ def _inputs_to_embed(params, cfg, batch):
     if cfg.input_mode == "embeddings" and "embeddings" in batch:
         return batch["embeddings"]
     return embed_tokens(params["embed"], cfg, batch["tokens"])
+
+
+def loss_fn(params, cfg: ModelConfig, batch, *, placement=None,
+            aux_weight: float = 0.01, ragged: bool = True):
+    """batch: {tokens (B, S) or, for a VLM config, embeddings (B, S, D);
+    labels (B, S); mask (B, S) optional} -> (loss, {"ce", "aux"}): the
+    token cross-entropy plus ``aux_weight`` times the mean router aux loss
+    of the MoE layers (0 without experts). Positions run 0..S-1; ``ragged``
+    picks the MoE dispatch, as in the other entry points."""
+    x = _inputs_to_embed(params, cfg, batch)
+    B, S = x.shape[:2]
+    dev = x.device
+    positions = torch.arange(S, dtype=torch.int32, device=dev)[None] \
+        .expand(B, S)
+    if placement is None:
+        placement = identity_placement(cfg, dev)
+    x, _, stats = _stack_forward(
+        params, cfg, x, positions, None, "train", placement, None, 0,
+        collect_stats=cfg.moe.enabled, ragged=ragged, remat=True)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = lm_logits(params["embed"], cfg, x)
+    ce = cross_entropy(logits, batch["labels"], batch.get("mask"))
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    if stats is not None and "aux_loss" in stats:
+        aux = stats["aux_loss"].mean()
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
 def prefill_chunk_paged(params, cfg: ModelConfig, batch, pages, *,

@@ -4,15 +4,16 @@ No KV cache: the "cache" is the list of per-block recurrent states
 (``models/ssm.py``), O(1) per request whatever ``max_len``. ``prefill``
 starts from the states it is given and returns the new ones; so does
 ``decode_step``, one token per row. Neither writes the given states in
-place, as in the reference.
+place, as in the reference. ``loss_fn`` runs the blocks from zero states
+over the whole sequence.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import (embed_tokens, init_embed, lm_logits,
-                                       rms_norm)
+from repro_torch.models.layers import (cross_entropy, embed_tokens,
+                                       init_embed, lm_logits, rms_norm)
 from repro_torch.models.ssm import (init_mlstm, init_slstm, mlstm_block,
                                     mlstm_state_init, slstm_block,
                                     slstm_state_init)
@@ -78,6 +79,20 @@ def _forward(params, cfg, x, states):
         new_states.append(ns)
         x = x + out
     return x, new_states
+
+
+def loss_fn(params, cfg: ModelConfig, batch, *, placement=None,
+            aux_weight: float = 0.0, ragged: bool = True):
+    """batch: {tokens (B, S), labels (B, S), mask optional} -> (loss,
+    {"ce", "aux"}): the token cross-entropy; no aux loss (no experts). The
+    routing keywords are accepted and unused."""
+    x = embed_tokens(params["embed"], cfg, batch["tokens"])
+    x, _ = _forward(params, cfg, x, None)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = lm_logits(params["embed"], cfg, x)
+    ce = cross_entropy(logits, batch["labels"], batch.get("mask"))
+    return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
+                                             device=x.device)}
 
 
 def prefill(params, cfg: ModelConfig, batch, cache, *, placement=None,

@@ -243,6 +243,70 @@ def test_moe_gmm_ragged_kernel(cuda, dtype, T, K, E, D, F):
     torch.testing.assert_close(out, ref, rtol=TOL[dtype], atol=TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("T,K,E,D,F", [
+    (2048, 8, 128, 2048, 768), (2048, 8, 128, 768, 2048),   # training
+    (64, 2, 8, 64, 40), (700, 8, 16, 128, 200),
+    (3, 1, 4, 72, 130)])                    # F % 8 != 0: the CUDA cores
+def test_ragged_gmm_backward_kernel(cuda, dtype, T, K, E, D, F):
+    """``ragged_gmm``'s forward and dx launch the kernel (dx against wᵀ,
+    dy rounded to the weights' type), held to the plain twin's f32
+    formulation; dw is the same PyTorch ops in both, so the same bits."""
+    from repro_torch.kernels.moe_dispatch import (pick_row_block,
+                                                  ragged_dispatch, ragged_gmm,
+                                                  ragged_gmm_plain)
+    from repro_torch.kernels.moe_gmm import moe_gmm_ragged
+    g = torch.Generator(device=cuda).manual_seed(9)
+    ids = torch.topk(torch.randn(T, E, generator=g, device=cuda), K,
+                     dim=-1).indices
+    x = torch.randn(T, D, generator=g, device=cuda).to(dtype)
+    w = (torch.randn(E, D, F, generator=g, device=cuda) / D ** 0.5).to(dtype)
+    d = ragged_dispatch(x, ids, E, row_block=pick_row_block(T * K, E))
+    dy = torch.randn(d.xs.shape[0], F, generator=g, device=cuda)
+    meta = (d.tile_expert, d.group_sizes, d.padded_offsets, d.row_block)
+    grads = []
+    for fn in (ragged_gmm, ragged_gmm_plain):
+        xs = d.xs.clone().requires_grad_()
+        wr = w.clone().requires_grad_()
+        before = (moe_gmm_ragged.launches, moe_gmm_ragged.tc_launches)
+        out = fn(xs, wr, *meta)
+        grads.append((out.detach(),) + torch.autograd.grad(out, (xs, wr), dy))
+        n = (moe_gmm_ragged.launches - before[0],
+             moe_gmm_ragged.tc_launches - before[1])
+        assert n == ((2, _tc_route(dtype, D, F) + _tc_route(dtype, F, D))
+                     if fn is ragged_gmm else (0, 0))
+    torch.cuda.synchronize()
+    (y, dx, dw), (y_ref, dx_ref, dw_ref) = grads
+    assert dx.dtype == dw.dtype == dtype
+    torch.testing.assert_close(y, y_ref, rtol=TOL[dtype], atol=TOL[dtype])
+    torch.testing.assert_close(dx.float(), dx_ref.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    assert torch.equal(dw, dw_ref)
+
+
+def test_ragged_dw_same_bits_over_two_launches(cuda):
+    """The ragged path's weight gradient at the training shape takes no
+    atomics: two calls give the same bits, within f32 rounding of one
+    product per expert."""
+    from repro_torch.kernels.moe_dispatch import (pick_row_block,
+                                                  ragged_dispatch, ragged_dw)
+    T, K, E, D, F = 2048, 8, 128, 2048, 768
+    g = torch.Generator(device=cuda).manual_seed(10)
+    ids = torch.topk(torch.randn(T, E, generator=g, device=cuda), K,
+                     dim=-1).indices
+    x = torch.randn(T, D, generator=g, device=cuda).to(torch.bfloat16)
+    d = ragged_dispatch(x, ids, E, row_block=pick_row_block(T * K, E))
+    dy = torch.randn(d.xs.shape[0], F, generator=g, device=cuda)
+    args = (d.xs, dy, d.tile_expert, d.padded_offsets, E)
+    a = ragged_dw(*args, row_block=d.row_block)
+    b = ragged_dw(*args, row_block=d.row_block)
+    assert torch.equal(a, b)
+    po = d.padded_offsets.tolist()
+    ref = torch.stack([d.xs[po[e]:po[e + 1]].float().T
+                       @ dy[po[e]:po[e + 1]] for e in range(E)])
+    torch.testing.assert_close(a, ref, rtol=1e-4, atol=1e-3)
+
+
 FLASH_SHAPES = [(4, 4, 4, 64, 512), (4, 8, 2, 128, 300),
                 (8, 32, 4, 128, 1024), (4, 16, 2, 256, 129), (4, 8, 8, 32, 5),
                 (4, 32, 1, 64, 100),           # G = 32: the CUDA cores
@@ -527,6 +591,38 @@ def test_moe_gmm_kernel(cuda, dtype, E, C, D, F):
     torch.cuda.synchronize()
     assert out.dtype == torch.float32 and out.shape == (E, C, F)
     torch.testing.assert_close(out, ref, rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("E,C,D,F", [
+    (128, 160, 2048, 768), (128, 160, 768, 2048),   # training: 4 rows of 40
+    (16, 71, 256, 96), (5, 13, 37, 131)])           # odd C, D and F
+def test_moe_gmm_backward_kernel(cuda, dtype, E, C, D, F):
+    """``moe_gmm``'s forward, dx (dy @ wᵀ) and dw (xᵀ @ dy) are three
+    launches of the kernel, held to autograd through the plain version."""
+    from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_plain
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn(E, C, D, generator=g, device=cuda).to(dtype)
+    w = (torch.randn(E, D, F, generator=g, device=cuda) / D ** 0.5).to(dtype)
+    # the padded path's dy holds values of the activation type
+    dy = torch.randn(E, C, F, generator=g, device=cuda).to(dtype).float()
+    out = []
+    for fn in (moe_gmm, moe_gmm_plain):
+        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+        before = (moe_gmm.launches, moe_gmm.tc_launches)
+        y = fn(xr, wr)
+        out.append(torch.autograd.grad(y, (xr, wr), dy))
+        n = (moe_gmm.launches - before[0], moe_gmm.tc_launches - before[1])
+        assert n == ((3, _tc_route(dtype, D, F) + _tc_route(dtype, F, D)
+                      + _tc_route(dtype, C, F))
+                     if fn is moe_gmm else (0, 0))
+    torch.cuda.synchronize()
+    (dx, dw), (dx_ref, dw_ref) = out
+    assert dx.dtype == dw.dtype == dtype
+    torch.testing.assert_close(dx.float(), dx_ref.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    torch.testing.assert_close(dw.float(), dw_ref.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
 
 
 def test_moe_gmm_unaligned_takes_cuda_cores(cuda):

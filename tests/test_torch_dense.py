@@ -166,7 +166,7 @@ def test_decode_attention_matches_reference(dtype, tol):
 
 
 def test_build_model_and_what_is_not_ported(twin):
-    cfg, _, tcfg, tp = twin
+    cfg, jp, tcfg, tp = twin
     fns = t_build_model(tcfg)
     params = fns.init(torch.Generator().manual_seed(0), device="cpu")
     assert params["blocks"]["pos0"]["moe"]["w_gate"].shape == \
@@ -174,8 +174,15 @@ def test_build_model_and_what_is_not_ported(twin):
     cache = fns.init_cache(2, 8, device="cpu")
     assert cache["pos0"]["k"].shape == (2, 2, 8, cfg.n_kv_heads,
                                         cfg.head_dim)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fns.loss(params, {})
+    # the loss is the reference's (training is ported)
+    rng = np.random.default_rng(4)
+    toks = rng.integers(0, cfg.vocab_size, (2, 9)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    jl, jm = build_model(cfg).loss(jp, {k: jnp.asarray(v)
+                                       for k, v in batch.items()})
+    tl, tm = fns.loss(tp, {k: torch.from_numpy(v) for k, v in batch.items()})
+    for t, j in ((tl, jl), (tm["ce"], jm["ce"]), (tm["aux"], jm["aux"])):
+        np.testing.assert_allclose(float(t), float(j), rtol=TOL, atol=TOL)
     # an int8 cache: int8 codes and f32 per-(slot, head) scales
     q8 = fns.init_cache(2, 8, kv_dtype="int8", device="cpu")["pos0"]
     assert {k: (tuple(v.shape), v.dtype) for k, v in q8.items()} == {

@@ -188,12 +188,16 @@ def _codes_match(tq, jq, ts, js, what):
                                err_msg=what)
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-32b", "gemma2-2b"])
+@pytest.mark.parametrize("arch", ["qwen1.5-32b", "gemma2-2b",
+                                  "llava-next-34b", "hymba-1.5b"])
 def test_int8_dense_cache_matches_reference(arch):
     """int8 dense caches on the float32 twins: the first layers' codes
     after prefill and every code at the end by the 1/127 rule; every logit
     within the bf16 bar. The caches' leaves, dtypes and shapes are the
-    reference's."""
+    reference's. hymba's mamba state beside the int8 ring (``mamba_h``,
+    ``mamba_conv``, f32) is held to the bf16 bar too: the reference rounds
+    its int8 decode's weights to bf16 (ROADMAP.md, "Dense decode in
+    bf16"), and the state carries that rounding on."""
     for what, tl, jl, tc, jc in _run_both(arch, "int8"):
         _close(tl, jl, f"{arch} int8: {what} logits", tol=BF16_TOL)
         if what == "prefill":
@@ -209,6 +213,10 @@ def test_int8_dense_cache_matches_reference(arch):
         for leaf in ("k", "v"):
             _codes_match(c[leaf], jc[name][leaf], c[leaf + "_scale"],
                          jc[name][leaf + "_scale"], f"{name}/{leaf}")
+        for leaf in ("mamba_h", "mamba_conv"):
+            if leaf in jc[name]:
+                _close(c[leaf], jc[name][leaf], f"{name}/{leaf}",
+                       tol=BF16_TOL)
 
 
 def test_int8_against_bf16_meets_reference_bar():

@@ -93,3 +93,48 @@ def test_placement_demo_prints_the_reference_output():
     assert t.returncode == 0, t.stderr
     assert t.stdout == j.stdout
     assert "MINLP reference" in t.stdout and "calibration:" in t.stdout
+
+
+def test_train_cli_checkpoints_and_resumes_on_the_cpu(tmp_path):
+    """``launch.train --device cpu`` checkpoints every 2 steps; a run with
+    ``--resume`` continues from the saved step, on the batches an
+    uninterrupted run would see, to the same loss."""
+    common = ("--device", "cpu", "--batch", "2", "--seq", "16")
+    ck = ("--checkpoint", str(tmp_path / "ck"), "--checkpoint-every", "2")
+    first = run("repro_torch.launch.train", "--steps", "4", *common, *ck)
+    assert first.returncode == 0, first.stdout + first.stderr
+    assert "checkpointed at step 4" in first.stdout
+    resumed = run("repro_torch.launch.train", "--steps", "6", "--resume",
+                  *common, *ck)
+    assert resumed.returncode == 0, resumed.stdout + resumed.stderr
+    assert "resumed from step 4" in resumed.stdout
+    assert "checkpointed at step 6" in resumed.stdout
+    straight = run("repro_torch.launch.train", "--steps", "6", *common)
+    assert straight.returncode == 0, straight.stdout + straight.stderr
+
+    def last_loss(out):
+        return [ln.split()[2] for ln in out.splitlines()
+                if ln.startswith("step    5")]
+
+    assert last_loss(resumed.stdout) == last_loss(straight.stdout) != []
+
+
+@pytest.mark.parametrize("module,expect", [
+    ("repro_torch.examples.quickstart", "generated token ids"),
+    ("repro_torch.examples.fault_tolerance_demo",
+     "bit-exact continuation: True")], ids=["quickstart", "fault_tolerance"])
+def test_training_examples_on_the_cpu_when_asked(module, expect):
+    t = run(module, "--device", "cpu")
+    assert t.returncode == 0, t.stdout + t.stderr
+    assert expect in t.stdout
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.launch.train", "repro_torch.examples.quickstart",
+    "repro_torch.examples.fault_tolerance_demo"],
+    ids=["train", "quickstart", "fault_tolerance"])
+def test_training_drivers_without_a_card_fail(module):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device: the default runs there")
+    t = run(module)
+    assert t.returncode != 0
