@@ -147,17 +147,37 @@
    expert GEMMs at the training shapes (the ragged forward and its two dx
    products with dy rounded to bf16; the padded forward, dx and dw at C =
    160) and times the ragged dw;
-13. prints a ``kernels`` JSON line (all seven kernels; the train phase's
-   launches under ``launches_by_path``), then as its last line ``{"ok":
-   true, "device": {...}}``.
+13. the ``sharded`` phase (ROADMAP Queue A item 11a), the earlier
+   phases' weights freed first: qwen3-moe-30b-a3b at full width and
+   ``--layers`` layers under ``make_policy(..., "serve")`` on a (1, 1)
+   NCCL mesh, for a decode cell of 8 rows over 32768-slot rings: a prefill
+   of 8 x 1024 tokens and 16 decode steps give the same bits with the
+   policy and without it; split-K forced to 4 and to 8 (on 2048-slot rings
+   the context spans) launches ``flash_decode`` that many times a
+   layer-step on the tensor cores, its logits within the bf16 bar of each
+   row's norm on the rows routed as the unsplit step's, each layer's
+   attention held row by row, one layer's device time split and unsplit;
+   then the script starts itself twice, as two ranks of a (1, 2) mesh over
+   gloo on the one card: each holds exactly its spec's share of the
+   weights (half the experts, heads' columns, vocabulary and ring), each
+   layer's attention and MoE fed the one-rank run's inputs meet its
+   outputs at the bf16 bar with exact statistics, a decode step's wall and
+   its collectives' share are printed, and the float32 twin of the smoke
+   config on the two ranks meets the CPU within 1e-5. The kernel phase
+   holds ``flash_decode``'s split-K shards (1 of 4 and 1 of 8 of a
+   32768-slot ring, f32 output and log-sum-exp) beside SDPA on the shard;
+14. prints a ``kernels`` JSON line (all seven kernels; the train and
+   sharded phases' launches under ``launches_by_path``), then as its last
+   line ``{"ok": true, "device": {...}}``.
 
 Adopting a placement moves the experts' weights in place; each serve
 leaves the caller's weights as they were.
 
 The kernel launch counters are set to 0 just before each serve of steps 4,
 6, 7, 9, 10 and 11, of each entry-point run of steps 10 and 11, of each
-scenario slice of step 8 and of each full-width training run of step 12,
-and read just after;
+scenario slice of step 8, of each full-width training run of step 12 and
+of the policy's run and each split decode step of step 13, and read just
+after;
 each serve fails if a kernel of its path was not launched, or if a bf16
 launch of an expert GEMM or of a decode kernel at full width took the CUDA
 cores instead of the tensor cores (at hd 256, which
@@ -169,6 +189,7 @@ CPU: without a CUDA device it exits with an error before doing anything.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import os
@@ -197,6 +218,11 @@ def parse_args():
     ap.add_argument("--layers", type=int, default=8,
                     help="depth of the served model (the full model has 48)")
     ap.add_argument("--seed", type=int, default=0)
+    # one rank of the sharded phase's two-rank world (the script starts
+    # them itself)
+    ap.add_argument("--sharded-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--sharded-job", default=None, help=argparse.SUPPRESS)
     return ap.parse_args()
 
 
@@ -305,6 +331,23 @@ def bound_ms(nbytes: float, ops: float, kind: str):
 
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+def lse_err(a, b) -> float:
+    """max |a - b| over log-sum-exps, 0 where both are -inf (a split-K
+    shard with no valid slot), inf where only one is."""
+    both = torch.isneginf(a) & torch.isneginf(b)
+    d = (a.float() - b.float()).abs().masked_fill(both, 0.0)
+    return float(d.max()) if d.numel() else 0.0
+
+
+def bar_err(a, b) -> float:
+    """max |a - b| / (1 + |b|): within a bar t iff ``allclose(a, b,
+    rtol=t, atol=t)`` holds (about), as the tests hold bf16 outputs."""
+    if not a.numel():
+        return 0.0
+    b = b.float()
+    return float(((a.float() - b).abs() / (1 + b.abs())).max())
 
 
 # ------------------------------------------------------------------ kernels
@@ -892,6 +935,7 @@ def kernel_phase():
     dense_families_kernel_rows(timer, record)
     other_families_kernel_rows(timer, record)
     train_kernel_rows(timer, record)
+    sharded_kernel_rows(timer, record)
     return results
 
 
@@ -1032,6 +1076,93 @@ def other_families_kernel_rows(timer, record):
                             (1, 2880, "llava-next-34b prompt")):
             record("pack_kv", dt + "/ring",
                    check_pack_ring(timer, dtype, B, S, 4096, 8, which))
+
+
+# the rings' newest positions of the shard rows: the long-context row's 8
+# rings of 32768 slots (most full), and the sharded phase's decode on
+# 2048-slot rings after a prefill of 1024 tokens
+SHARD_WRITES = {32768: [32767, 40000, 65535, 32767, 50000, 32767, 20000,
+                        32767],
+                2048: [1039, 1024, 1031, 1039, 1027, 1035, 1039, 1030]}
+
+
+def check_flash_decode_shard(timer, dtype, L, n_split):
+    """One split-K shard of ``flash_decode`` at qwen3-moe's 32/4 heads: 8
+    rings of ``L`` slots (newest positions ``SHARD_WRITES[L]``) cut into
+    ``n_split`` shards; shard 0, a slice of the cache read in place, returns
+    its f32 output and log-sum-exp (``return_lse``), held to its plain twin
+    on the same slots (outputs and each row's own norm; the log-sum-exps
+    within the same bar). The bound counts the shard's valid K and V, q,
+    the positions and the f32 outputs; the library yardstick is SDPA on the
+    shard with a boolean mask (it returns no log-sum-exp)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_route import row_rel_err, tc_eligible
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_plain)
+    from repro_torch.models.attention import ring_positions
+    g = torch.Generator(device="cuda").manual_seed(6)
+    B, Hq, Hkv, hd = 8, 32, 4, 128
+    write = torch.tensor(SHARD_WRITES[L], device="cuda")
+    q = torch.randn(B, Hq, hd, generator=g, device="cuda").to(dtype)
+    kc = torch.randn(B, L, Hkv, hd, generator=g, device="cuda").to(dtype)
+    vc = torch.randn(B, L, Hkv, hd, generator=g, device="cuda").to(dtype)
+    Ls = L // n_split
+    k_pos = ring_positions(write, L)[:, :Ls].contiguous()
+    q_pos = write.to(torch.int32)
+    ks, vs = kc[:, :Ls], vc[:, :Ls]
+    tc_before = flash_decode.tc_launches
+    out, lse = flash_decode(q, ks, vs, k_pos, q_pos, return_lse=True)
+    route = route_name(flash_decode.tc_launches - tc_before)
+    ref, ref_lse = flash_decode_plain(q, ks.contiguous(), vs.contiguous(),
+                                      k_pos, q_pos, return_lse=True)
+    torch.cuda.synchronize()
+    if out.dtype != torch.float32 or not torch.isfinite(out).all() \
+            or not torch.isfinite(lse).all():
+        raise AssertionError("flash_decode shard: the output must be f32 "
+                             "and finite, with finite log-sum-exps")
+    err = max(max_err(out, ref), lse_err(lse, ref_lse))
+    rel = row_rel_err(out, ref)
+    valid = (k_pos >= 0) & (k_pos <= q_pos[:, None])
+    n_valid = int(valid.sum())
+    item = q.element_size()
+    nbytes = q.numel() * item + n_valid * Hkv * 2 * hd * item \
+        + k_pos.numel() * 4 + B * 4 + out.numel() * 4 + lse.numel() * 4
+    ops = 4.0 * n_valid * Hq * hd
+    q4 = q[:, :, None].contiguous()
+    k4, v4 = (t.transpose(1, 2).contiguous() for t in (ks, vs))
+    mask = valid[:, None, None, :]
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q4, k4, v4, attn_mask=mask, enable_gqa=True)
+    run = lambda: flash_decode(q, ks, vs, k_pos, q_pos,  # noqa: E731
+                               return_lse=True)
+    return {"shape": f"split-K shard 1 of {n_split}: B={B} Hq={Hq} "
+                     f"Hkv={Hkv} hd={hd}, slots [0, {Ls}) of {L}-slot "
+                     f"rings read in place, {n_valid} valid slots, f32 "
+                     f"output + log-sum-exp",
+            "err": err, "row_rel_err": rel,
+            "ms": timer(run), **device_times(timer, run),
+            "plain_ms": timer(lambda: flash_decode_plain(
+                q, ks, vs, k_pos, q_pos, return_lse=True)),
+            "bound": bound_ms(nbytes, ops, str(dtype).split(".")[1]),
+            "library_ms": timer(sdpa),
+            **dict(zip(("library_device_ms", "library_device_parts"),
+                       timer.device(sdpa))),
+            "route": route, "tc_expected": tc_eligible(dtype, hd, Hq // Hkv)}
+
+
+def sharded_kernel_rows(timer, record):
+    """``flash_decode``'s split-K shards, bf16 on the tensor cores and f32
+    on the CUDA cores: shard 1 of 2 of a 32768-slot ring (the sharded
+    phase's two ranks, kv_split 2 over ``model``), of 4 and of 8 (a decode
+    cell's kv_split at 32k), and 1 of 4 and of 8 of a 2048-slot ring (the
+    phase's split-K on one card)."""
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype).split(".")[1]
+        for L, n in ((32768, 2), (32768, 4), (32768, 8), (2048, 4),
+                     (2048, 8)):
+            record("flash_decode", dt + f"/split-K {n} of {L}",
+                   check_flash_decode_shard(timer, dtype, L, n))
+        torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------------ serving
@@ -3311,8 +3442,628 @@ def train_phase(args, counters):
     return total, total_tc
 
 
+# ------------------------------------------------------------------ sharded
+SH = "sharded"
+SHARD_DIR = os.path.join(HERE, "build", "sharded")      # gitignored
+
+
+def _tree_equal(a, b) -> bool:
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_tree_equal(a[k], b[k])
+                                            for k in a)
+    return torch.equal(a, b)
+
+
+def _decode_steps(fns, params, cache, toks, lengths, **kw):
+    """One decode step per row of ``toks`` at ``lengths``, ``lengths`` + 1,
+    ...; returns [(logits, stats)] and the cache."""
+    out = []
+    for i, tok in enumerate(toks):
+        lg, cache, st = fns.decode(params, tok, cache, lengths + i, **kw)
+        out.append((lg, st))
+    return out, cache
+
+
+def _record_sublayers(fns, params, batch, cache, n_steps, kw):
+    """The world-1 run the two ranks are held to, sublayer by sublayer:
+    prefill, then ``n_steps`` greedy decode steps, recording each layer's
+    attention (input, positions, output) and MoE (normed input, output, B
+    and A) on the host, and the tokens fed. Returns {"attn": [[...] per
+    step], "moe": ..., "toks": [...], "next": the token after the last}."""
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tfm
+    rec = {"attn": [], "moe": [], "toks": []}
+    attn0, moe0 = tfm.attention_block, moe_mod.moe_layer
+
+    def attention(lp, cfg, desc, x, positions, cache, mode, paged=None,
+                  policy=None):
+        out, c = attn0(lp, cfg, desc, x, positions, cache, mode, paged,
+                       policy)
+        rec["attn"][-1].append((x.cpu(), positions.cpu(), out.cpu()))
+        return out, c
+
+    def moe(params, cfg, x, placement, **mkw):
+        y, st = moe0(params, cfg, x, placement, **mkw)
+        rec["moe"][-1].append((x.cpu(), y.cpu(),
+                               st["expert_counts"].cpu(),
+                               st["source_expert"].cpu()))
+        return y, st
+
+    lengths = batch["lengths"]
+    tfm.attention_block, moe_mod.moe_layer = attention, moe
+    try:
+        for step in range(n_steps + 1):
+            rec["attn"].append([])
+            rec["moe"].append([])
+            if step == 0:
+                lg, cache, _ = fns.prefill(params, batch, cache, **kw)
+            else:
+                lg, cache, _ = fns.decode(params, rec["toks"][-1].to(
+                    lengths.device), cache, lengths + step - 1, **kw)
+            rec["toks"].append(lg.argmax(-1).to(torch.int32).cpu())
+    finally:
+        tfm.attention_block, moe_mod.moe_layer = attn0, moe0
+    rec["next"] = rec["toks"].pop()
+    return rec
+
+
+def _twin_cpu(seed):
+    """The float32 twin (the smoke config at 2 layers) on the CPU, world 1:
+    params from ``seed``, prefill of 4 x 24 tokens into 32-slot rings, 4
+    greedy decode steps; the logits, statistics and caches the two ranks
+    on the card are held to."""
+    from repro_torch.bridge import tree_map
+    from repro_torch.configs import get_smoke_config, reduced
+    from repro_torch.models import build_model
+    cfg = reduced(get_smoke_config("qwen3-moe-30b-a3b"), n_layers=2,
+                  dtype="float32")
+    fns = build_model(cfg)
+    params = fns.init(torch.Generator().manual_seed(seed), device="cpu")
+    g = torch.Generator().manual_seed(seed + 1)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 24), generator=g,
+                           dtype=torch.int32)
+    lengths = torch.tensor([24, 19, 24, 21], dtype=torch.int32)
+    src = torch.tensor([0, 1, 0, 1], dtype=torch.int32)
+    kw = dict(source_ids=src, n_sources=2)
+    lg, cache, st = fns.prefill(params, {"tokens": tokens,
+                                         "lengths": lengths},
+                                fns.init_cache(4, 32, device="cpu"), **kw)
+    logits, stats, toks = [lg], [st], []
+    for i in range(4):
+        toks.append(lg.argmax(-1).to(torch.int32))
+        lg, cache, st = fns.decode(params, toks[-1], cache, lengths + i, **kw)
+        logits.append(lg)
+        stats.append(st)
+    return {"params": params, "tokens": tokens, "lengths": lengths,
+            "src": src, "toks": toks, "logits": logits,
+            "stats": [{k: s[k] for k in ("expert_counts", "source_expert")}
+                      for s in stats],
+            "cache": tree_map(torch.clone, cache)}
+
+
+# the sharded phase's sizes: a decode cell of B rows over an L-slot ring,
+# prefilled with P tokens and decoded STEPS steps; split-K on L2-slot rings;
+# the two ranks' prefill of P3 tokens and STEPS3 decode steps
+SH_B, SH_P, SH_L, SH_STEPS = 8, 1024, 32768, 16
+SH_L2, SH_P3, SH_STEPS3 = 2048, 256, 8
+
+
+def _sharded_cfg(layers):
+    from repro_torch.configs import get_config, reduced
+    return reduced(get_config("qwen3-moe-30b-a3b"), n_layers=layers)
+
+
+def _card() -> str:
+    """The card's name and power limit as nvidia-smi gives them, printed
+    beside every time of the sharded phase."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+
+
+@contextlib.contextmanager
+def shards_held(tfm, seen):
+    """While open, every split-K shard that ``transformer`` launches
+    (``flash_decode(return_lse=True)``) is held to ``flash_decode_plain``
+    on the same inputs, at the path's own shapes: appends (the shard's
+    cache shape, max_abs_err of output and log-sum-exp, row_rel_err of the
+    output) to ``seen``. These comparisons run outside the counted runs."""
+    from repro_torch.kernels.decode_route import row_rel_err
+    from repro_torch.kernels.flash_decode import flash_decode_plain
+    kernel = tfm.flash_decode
+
+    def held(q, k, v, k_pos, q_pos, **kw):
+        out, lse = kernel(q, k, v, k_pos, q_pos, **kw)
+        ref, ref_lse = flash_decode_plain(q, k, v, k_pos, q_pos, **kw)
+        seen.append((tuple(k.shape), max(max_err(out, ref),
+                                         lse_err(lse, ref_lse)),
+                     row_rel_err(out, ref)))
+        return out, lse
+
+    tfm.flash_decode = held
+    try:
+        yield
+    finally:
+        tfm.flash_decode = kernel
+
+
+def check_shards(label, seen, n_expected):
+    """Fails unless ``n_expected`` shards were held and each met the bf16
+    bars of the kernel rows (max_abs_err and each row's norm); one line."""
+    from repro_torch.kernels.decode_route import ROW_TOL
+    tol, rtol = TOL["bfloat16"], ROW_TOL[torch.bfloat16]
+    err = max((e for _, e, _ in seen), default=float("nan"))
+    rel = max((r for _, _, r in seen), default=float("nan"))
+    shapes = sorted({s for s, _, _ in seen})
+    ok = len(seen) == n_expected and err <= tol and rel <= rtol
+    line = (f"{label}: {len(seen)} flash_decode shards (f32 output + "
+            f"log-sum-exp, caches {shapes}) held to flash_decode_plain on "
+            f"the same inputs: max_abs_err {err:.3g} (tolerance {tol:g}), "
+            f"row_rel_err {rel:.3g} (tolerance {rtol:g}) "
+            f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{line}; expected {n_expected} shards")
+    return line
+
+
+def sharded_phase(args, counters):
+    """The sharding policy on the card (ROADMAP Queue A item 11a).
+
+    1. World size 1: qwen3-moe-30b-a3b at full width and ``--layers``
+       layers, bf16, on a (1, 1) data x model mesh over NCCL, under
+       ``make_policy(..., "serve")`` for a decode cell of B = 8 over a
+       32768-slot ring (4 GiB of cache at 8 layers): prefill of 8 x 1024
+       tokens and 16 decode steps with the policy and without it give the
+       same bits (logits, caches, statistics).
+    2. Split-K on the card: kv_split forced to 4 and to 8, on rings of
+       2048 slots that the context spans (of a 32768-slot ring it fills
+       only the first shard, which alone gives the unsplit bits). Each
+       decode step runs from a copy of the unsplit run's cache with its
+       token: ``flash_decode`` launches kv_split times a layer-step, all
+       on the tensor cores; the logits meet the unsplit step's within the
+       bf16 bar of each row's norm (``row_rel_err`` 3e-2: 8 layers of bf16
+       carry one-unit differences into the logits, whose largest elementwise
+       difference over 19 M of them is a tail, not a bar) on every row whose
+       experts in every layer were the unsplit step's, at least half of them
+       (the f32 merge
+       rounds a few attention outputs one bf16 unit off, and the router
+       then flips near-ties: ROADMAP Queue C, bf16 routing); each layer's
+       attention output is held row by row to the unsplit one on the same
+       query and cache (``row_rel_err`` 1e-2), each shard's f32 output and
+       log-sum-exp to ``flash_decode_plain`` on the same inputs
+       (:func:`shards_held`), and one layer's device time split and
+       unsplit is printed.
+    3. Two ranks on the one card (a (1, 2) mesh over gloo, this script
+       started twice): each holds 64 of 128 experts, 16 of 32 query heads'
+       columns, 2 of 4 KV heads' columns, half the vocabulary and half of
+       each ring (kv_split 2 over ``model``), exactly its spec's share of
+       the parameters; each layer's attention and MoE, fed the world-1
+       run's inputs, meet its outputs at the bf16 bar over a prefill of 8 x
+       256 tokens and 8 decode steps, with the statistics exact, and each
+       decode shard (16384 slots) to ``flash_decode_plain``; each rank's
+       decode step wall and its collectives' share.
+    4. The float32 twin across the same two ranks on the card: logits within
+       1e-5 of the CPU world-1 run, statistics exact.
+    Returns the launch counts of the world-1 run under the policy."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.bridge import tree_map
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels.decode_route import ROW_TOL, row_rel_err
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as tfm
+    os.makedirs(SHARD_DIR, exist_ok=True)
+    dev = torch.device("cuda")
+    cfg = _sharded_cfg(args.layers)
+    ns = cfg.n_layers
+    B, P, L, steps = SH_B, SH_P, SH_L, SH_STEPS
+    mesh = make_device_mesh((1, 1), ("data", "model"), "cuda",
+                            init_method=f"file://{SHARD_DIR}/store_w1_"
+                                        f"{os.getpid()}", rank=0,
+                            world_size=1)
+    pol = sh.make_policy(cfg, ShapeConfig("decode_b8_32k", L, B, "decode"),
+                         mesh, "serve")
+    log(f"{SH}: world 1: a (1, 1) data x model mesh over {mesh.backend}, "
+        f"policy batch_axes {pol.batch_axes}, kv_split {pol.kv_split} over "
+        f"{pol.kv_split_axes}, expert_data_shard {pol.expert_data_shard}")
+    fns = build_model(cfg)
+    params = init_family(cfg, args.seed, "qwen3-moe-30b-a3b", SH)
+    g = torch.Generator(device=dev).manual_seed(args.seed + 22)
+    tokens = torch.randint(0, cfg.vocab_size, (B, P), generator=g,
+                           device=dev, dtype=torch.int32)
+    lengths = torch.full((B,), P, dtype=torch.int32, device=dev)
+    src = (torch.arange(B, device=dev) % 2).to(torch.int32)
+    kw = dict(source_ids=src, n_sources=2)
+    batch = {"tokens": tokens, "lengths": lengths}
+
+    # 1. the same bits with the policy and without it
+    t0 = time.perf_counter()
+    lg, cache, st = fns.prefill(params, batch,
+                                fns.init_cache(B, L, device=dev), **kw)
+    plain, toks = [(lg, st)], []
+    for i in range(steps):
+        toks.append(lg.argmax(-1).to(torch.int32))
+        lg, cache, st = fns.decode(params, toks[i], cache, lengths + i, **kw)
+        plain.append((lg, st))
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    lg, cache_p, st = fns.prefill(params, batch,
+                                  fns.init_cache(B, L, device=dev),
+                                  policy=pol, **kw)
+    under = [(lg, st)]
+    outs, cache_p = _decode_steps(fns, params, cache_p, toks, lengths,
+                                  policy=pol, **kw)
+    under += outs
+    torch.cuda.synchronize()
+    t_under = time.perf_counter() - t0
+    w1_launches, w1_tc = read_counts(counters)
+    same = all(torch.equal(a[0], b[0]) and _tree_equal(a[1], b[1])
+               for a, b in zip(plain, under)) and _tree_equal(cache, cache_p)
+    if not same:
+        raise AssertionError(f"{SH}: world 1: the policy changed bits")
+    log(f"{SH}: world 1: prefill of {B} x {P} tokens + {steps} decode steps "
+        f"with the policy: logits, caches and statistics the same bits as "
+        f"without it ({t_under:.2f} s wall; {t_plain:.2f} s without; "
+        f"{_card()}); "
+        f"launches { {k: v for k, v in w1_launches.items() if v} }")
+    del cache, cache_p, plain, under
+    # 2. split-K, kv_split forced to 4 and 8, on a ring of L2 slots that
+    #    the context spans (the 1024 + 16 tokens fill only the first shard
+    #    of a 32768-slot ring, and one shard alone gives the unsplit bits).
+    #    Each step runs from a copy of the unsplit run's cache with its
+    #    token: launches and logits a step.
+    L2 = SH_L2
+    from repro_torch.models import moe as moe_mod
+    route0, routes = moe_mod.route, []
+
+    def route(params, cfg, x):       # each layer's experts, per row
+        gates, ids, probs = route0(params, cfg, x)
+        routes.append(ids.reshape(-1, ids.shape[-1]).sort(dim=-1).values)
+        return gates, ids, probs
+
+    def taken():
+        out = torch.stack(routes)
+        routes.clear()
+        return out                   # (layers, B, K)
+
+    lg, cache, _ = fns.prefill(params, batch,
+                               fns.init_cache(B, L2, device=dev), **kw)
+    plain, split_rows, split_counts = [], {4: [], 8: []}, {4: [], 8: []}
+    moe_mod.route = route
+    try:
+        for i in range(steps):
+            before = tree_map(torch.clone, cache)
+            routes.clear()
+            lg, cache, _ = fns.decode(params, toks[i], cache, lengths + i,
+                                      **kw)
+            plain.append((lg, taken()))
+            for kv in (4, 8):
+                c = tree_map(torch.clone, before) if kv == 4 else before
+                reset_counts(counters)
+                lk, _, _ = fns.decode(params, toks[i], c, lengths + i,
+                                      policy=dataclasses.replace(
+                                          pol, kv_split=kv, cache_len=L2),
+                                      **kw)
+                launches, tc = read_counts(counters)
+                split_counts[kv].append((launches["flash_decode"],
+                                         tc["flash_decode"]))
+                split_rows[kv].append((lk, taken()))
+                del c
+            del before
+    finally:
+        moe_mod.route = route0
+    for kv in (4, 8):
+        counts = split_counts[kv]
+        if any(n != kv * ns or t != kv * ns for n, t in counts):
+            raise AssertionError(f"{SH}: kv_split {kv}: flash_decode "
+                                 f"launches (all, tensor cores) a step "
+                                 f"{counts}, expected {kv * ns} each")
+        held, rel, worst, worst_abs = 0, 0.0, 0.0, 0.0
+        for (la, ra), (lk, rk) in zip(plain, split_rows[kv]):
+            same = (ra == rk).all(dim=2).all(dim=0)       # (B,)
+            held += int(same.sum())
+            if same.any():
+                rel = max(rel, row_rel_err(lk[same], la[same]))
+                worst = max(worst, bar_err(lk[same], la[same]))
+                worst_abs = max(worst_abs, max_err(lk[same], la[same]))
+        rows = steps * B
+        if rel > TOL["bfloat16"] or held < rows // 2:
+            raise AssertionError(f"{SH}: kv_split {kv}: logits row_rel_err "
+                                 f"{rel} over {held} of {rows} rows routed "
+                                 f"as in the unsplit step")
+        log(f"{SH}: split-K {kv} on {L2}-slot rings ({L2 // kv} slots a "
+            f"shard, the context {P} to {P + steps} tokens): {steps} decode "
+            f"steps, flash_decode {counts[0][0]} launches a step ({kv} a "
+            f"layer), {counts[0][1]} on the tensor cores; logits against the "
+            f"unsplit step: row_rel_err at most {rel:.3g} (bar "
+            f"{TOL['bfloat16']:g} of each row's norm; elementwise "
+            f"max_abs_err {worst_abs:.3g}, |a - b| / (1 + |b|) {worst:.3g}) "
+            f"over the {held} of {rows} rows whose experts in every layer "
+            f"were the unsplit step's; the other {rows - held} took another "
+            f"expert on a near-tie somewhere (bf16 routing, ROADMAP Queue C)")
+    del split_rows, plain
+    # each layer's attention output, split against unsplit on the same q
+    # and cache, and one layer's device time
+    timer = Timer(iters=10, warmup=2)
+    orig = tfm.split_decode
+    for kv in (4, 8):
+        rels, times, seen = [], {}, []
+
+        def held(q, ck, cv, positions, k_pos, window, cap, n_split,
+                 k_scale=None, v_scale=None, policy=None):
+            with shards_held(tfm, seen):
+                out = orig(q, ck, cv, positions, k_pos, window, cap,
+                           n_split, k_scale, v_scale, policy)
+            whole = orig(q, ck, cv, positions, k_pos, window, cap, 1,
+                         k_scale, v_scale)
+            rels.append(row_rel_err(out, whole))
+            if not times:
+                for name, n in (("split", n_split), ("unsplit", 1)):
+                    times[name] = timer.device(lambda n=n: orig(
+                        q, ck, cv, positions, k_pos, window, cap, n,
+                        k_scale, v_scale))[0]
+            return out
+
+        tfm.split_decode = held
+        try:
+            c = tree_map(torch.clone, cache)
+            fns.decode(params, lg.argmax(-1).to(torch.int32), c,
+                       lengths + steps, policy=dataclasses.replace(
+                           pol, kv_split=kv, cache_len=L2), **kw)
+            del c
+        finally:
+            tfm.split_decode = orig
+        if len(rels) != ns or max(rels) > ROW_TOL[torch.bfloat16]:
+            raise AssertionError(f"{SH}: split-K {kv}: attention rows "
+                                 f"{rels} (tolerance "
+                                 f"{ROW_TOL[torch.bfloat16]})")
+        log(f"{SH}: split-K {kv}: each of {ns} layers' attention output "
+            f"against the unsplit decode on the same q and cache: "
+            f"row_rel_err at most {max(rels):.3g} (tolerance "
+            f"{ROW_TOL[torch.bfloat16]:g}); one layer's decode attention, "
+            f"device time (torch.profiler): split {times['split']:.4f} ms, "
+            f"unsplit {times['unsplit']:.4f} ms ({_card()})")
+        log(f"{SH}: " + check_shards(f"split-K {kv} on {L2}-slot rings",
+                                     seen, kv * ns))
+    del cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. the world-1 run the two ranks are held to, sublayer by sublayer
+    t3 = torch.randint(0, cfg.vocab_size, (B, SH_P3), generator=g,
+                       device=dev, dtype=torch.int32)
+    l3 = torch.full((B,), SH_P3, dtype=torch.int32, device=dev)
+    rec = _record_sublayers(fns, params, {"tokens": t3, "lengths": l3},
+                            fns.init_cache(B, L, device=dev), SH_STEPS3, kw)
+    rec.update(tokens=t3.cpu(), lengths=l3.cpu(), src=src.cpu())
+    del params, fns
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    torch.save(rec, os.path.join(SHARD_DIR, "record.pt"))
+    torch.save(_twin_cpu(args.seed), os.path.join(SHARD_DIR, "twin.pt"))
+    del rec
+    job = {"src": os.path.join(HERE, "src"), "seed": args.seed,
+           "layers": args.layers,
+           "store": os.path.join(SHARD_DIR, f"store_w2_{os.getpid()}"),
+           "record": os.path.join(SHARD_DIR, "record.pt"),
+           "twin": os.path.join(SHARD_DIR, "twin.pt"),
+           "out": os.path.join(SHARD_DIR, "rank")}
+    path = os.path.join(SHARD_DIR, "job.json")
+    with open(path, "w") as f:
+        json.dump(job, f)
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--sharded-rank", str(r), "--sharded-job",
+                               path], env=env, cwd=HERE,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    logs = []
+    for p in procs:
+        try:
+            logs.append(p.communicate(timeout=600)[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            logs.append(p.communicate()[0] + "\n(killed at the timeout)")
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        for line in text.splitlines():
+            if "USDT" not in line and "Warning" not in line:
+                log(f"{SH}: rank {r}: {line}")
+        if p.returncode:
+            raise AssertionError(f"{SH}: rank {r} exited {p.returncode}")
+    log(f"{SH}: two ranks on one card: both exited 0 in "
+        f"{time.perf_counter() - t0:.1f} s ({_card()})")
+    return w1_launches, w1_tc
+
+
+def sharded_rank(args) -> int:
+    """One rank of the sharded phase's (1, 2) world on the one card: steps
+    3 and 4 of ``sharded_phase``. Prints its lines; exits non-zero on a
+    failed check."""
+    import torch.distributed as dist
+    with open(args.sharded_job) as f:
+        job = json.load(f)
+    sys.path.insert(0, job["src"])
+    from repro_torch.bridge import tree_leaves
+    from repro_torch.configs import get_smoke_config, reduced
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models import api, build_model
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.moe import moe_layer
+    rank = args.sharded_rank
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_device_mesh((1, 2), ("data", "model"), "cuda",
+                            init_method=f"file://{job['store']}", rank=rank,
+                            world_size=2)
+    dev = mesh.device
+    cfg = _sharded_cfg(job["layers"])
+    B, L = SH_B, SH_L
+    pol = sh.make_policy(cfg, ShapeConfig("decode_b8_32k", L, B, "decode"),
+                         mesh, "serve")
+    if (pol.kv_split, pol.kv_split_axes) != (2, ("model",)):
+        raise AssertionError(f"policy {pol}")
+    fns = build_model(cfg)
+    full = fns.init(torch.Generator(device=dev).manual_seed(job["seed"]),
+                    device=dev)
+    specs = sh.make_param_specs(full, cfg, pol)
+    params = sh.shard_params(full, specs, pol)
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    abstract = api.param_specs_abstract(cfg)
+    want = sh.spec_bytes(abstract, sh.make_param_specs(abstract, cfg, pol),
+                         pol)
+    have = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    blk = params["blocks"]["pos0"]
+    print(f"mesh {mesh}, backend {mesh.backend}, {dev}: experts "
+          f"{blk['moe']['w_gate'].shape[1]} of {cfg.moe.n_experts}, query "
+          f"heads {blk['attn']['wq'].shape[-1] // cfg.head_dim} of "
+          f"{cfg.n_heads}, KV head columns {blk['attn']['wk'].shape[-1]} of "
+          f"{cfg.kv_dim} ({blk['attn']['wk'].shape[-1] // cfg.head_dim} of "
+          f"{cfg.n_kv_heads} heads), vocabulary rows "
+          f"{params['embed']['embedding'].shape[0]} of {cfg.vocab_size}; "
+          f"resident params {have / 2**30:.4f} GiB = its spec share "
+          f"{want / 2**30:.4f} GiB: {have == want}", flush=True)
+    if have != want:
+        raise AssertionError(f"resident {have} bytes, spec share {want}")
+    abs_cache = fns.init_cache(B, L, device="meta")
+    cspecs = sh.cache_specs_tree(cfg, pol, abs_cache)
+    cache = sh.local_zeros(abs_cache, cspecs, pol, dev)
+    print(f"cache shard {tuple(cache['pos0']['k'].shape)} of "
+          f"{tuple(abs_cache['pos0']['k'].shape)} per leaf", flush=True)
+    rec = torch.load(job["record"])
+    src = rec["src"].to(dev)
+    desc = tfm.period_descriptors(cfg)[0]
+    place = torch.arange(cfg.moe.n_experts, dtype=torch.int32, device=dev)
+    views = tfm._sharded_block_views(params["blocks"], cfg.n_layers // len(
+        tfm.period_descriptors(cfg)), pol)
+    worst = {"attention": 0.0, "moe": 0.0}
+    bar = {"attention": 0.0, "moe": 0.0}
+    seen = []                    # the decode steps' split-K shards
+    for step, (attn, moe) in enumerate(zip(rec["attn"], rec["moe"])):
+        mode = "prefill" if step == 0 else "decode"
+        for i, ((x, pos, out_ref), (xn, y_ref, b_ref, a_ref)) in \
+                enumerate(zip(attn, moe)):
+            lp = views(i)["pos0"]
+            c = {k: v[i] for k, v in cache["pos0"].items()}
+            with shards_held(tfm, seen):
+                out, _ = tfm.attention_block(lp, cfg, desc, x.to(dev),
+                                             pos.to(dev), c, mode, None, pol)
+            worst["attention"] = max(worst["attention"],
+                                     max_err(out.cpu(), out_ref))
+            bar["attention"] = max(bar["attention"],
+                                   bar_err(out.cpu(), out_ref))
+            Bx, S = xn.shape[:2]
+            y, st = moe_layer(lp["moe"], cfg, xn.to(dev), place,
+                              source_ids=src, n_sources=2, policy=pol)
+            worst["moe"] = max(worst["moe"], max_err(y.cpu(), y_ref))
+            bar["moe"] = max(bar["moe"], bar_err(y.cpu(), y_ref))
+            if not (torch.equal(st["expert_counts"].cpu(), b_ref)
+                    and torch.equal(st["source_expert"].cpu(), a_ref)):
+                raise AssertionError(f"step {step} layer {i}: statistics "
+                                     f"differ from the world-1 run")
+    n_steps = len(rec["attn"])
+    ok = max(bar.values()) <= TOL["bfloat16"]
+    print(f"per layer against the world-1 run (prefill of "
+          f"{rec['tokens'].shape[0]} x {rec['tokens'].shape[1]} tokens, "
+          f"{n_steps - 1} decode steps, {cfg.n_layers} layers): attention "
+          f"max_abs_err {worst['attention']:.3g}, MoE max_abs_err "
+          f"{worst['moe']:.3g}; |a - b| / (1 + |b|) at most "
+          f"{bar['attention']:.3g} and {bar['moe']:.3g} (bar "
+          f"{TOL['bfloat16']:g}, as allclose's rtol = atol) "
+          f"{'ok' if ok else 'FAIL'}; B/A statistics exact", flush=True)
+    if not ok:
+        raise AssertionError(f"per-layer errors {worst}, {bar}")
+    print(check_shards("decode attention", seen,
+                       (n_steps - 1) * cfg.n_layers), flush=True)
+    # a decode step through the entry point: its wall and the collectives'
+    # share (record_function ranges of distributed/sharding.py)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    lengths = rec["lengths"].to(dev) + n_steps - 1
+    tok = rec["next"].to(dev)
+    kw = dict(source_ids=src, n_sources=2, policy=pol)
+    walls = []
+    for i in range(3):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache, _ = fns.decode(params, tok, cache, lengths + i, **kw)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache, _ = fns.decode(params, tok, cache, lengths + 3, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # each record_function range also shows as a GPU user annotation:
+    # count and time the host-side ranges only
+    host = [e for e in prof.events() if e.name.startswith("collective:")
+            and e.device_type == DeviceType.CPU]
+    coll = sum(e.cpu_time_total for e in host) / 1e6
+    n_coll = len(host)
+    print(f"decode step of {B} rows through the entry point ({_card()}): "
+          f"{[round(w * 1e3, 2) for w in walls]} ms wall, profiled "
+          f"{wall * 1e3:.2f} ms, of it {coll * 1e3:.2f} ms "
+          f"({100 * coll / wall:.1f}%) in {n_coll} collectives (gloo, "
+          f"through the host); logits {tuple(lg.shape)} finite "
+          f"{bool(torch.isfinite(lg).all())}", flush=True)
+    del params, cache, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 4. the float32 twin across the two ranks, against the CPU world 1
+    scfg = reduced(get_smoke_config("qwen3-moe-30b-a3b"), n_layers=2,
+                   dtype="float32")
+    twin = torch.load(job["twin"])
+    spol = sh.make_policy(scfg, ShapeConfig("twin", 32, 4, "decode"), mesh,
+                          "serve")
+    sp = sh.shard_params(twin["params"], sh.make_param_specs(
+        twin["params"], scfg, spol), spol, device=dev)
+    sfns = build_model(scfg)
+    sabs = sfns.init_cache(4, 32, device="meta")
+    scache = sh.local_zeros(sabs, sh.cache_specs_tree(scfg, spol, sabs),
+                            spol, dev)
+    skw = dict(source_ids=twin["src"].to(dev), n_sources=2, policy=spol)
+    lg, scache, st = sfns.prefill(sp, {"tokens": twin["tokens"].to(dev),
+                                       "lengths": twin["lengths"].to(dev)},
+                                  scache, **skw)
+    errs, exact = [max_err(lg.cpu(), twin["logits"][0])], [
+        all(torch.equal(st[k].cpu(), twin["stats"][0][k])
+            for k in twin["stats"][0])]
+    for i, tk in enumerate(twin["toks"]):
+        lg, scache, st = sfns.decode(sp, tk.to(dev), scache,
+                                     twin["lengths"].to(dev) + i, **skw)
+        errs.append(max_err(lg.cpu(), twin["logits"][i + 1]))
+        exact.append(all(torch.equal(st[k].cpu(), twin["stats"][i + 1][k])
+                         for k in twin["stats"][i + 1]))
+    ok = max(errs) <= 1e-5 and all(exact)
+    print(f"float32 twin (smoke config, 2 layers, kv_split "
+          f"{spol.kv_split} over {spol.kv_split_axes}) on the card against "
+          f"the CPU world-1 run: prefill + {len(twin['toks'])} decode steps, "
+          f"logits max_abs_err {max(errs):.3g} (bar 1e-05), B/A statistics "
+          f"exact: {all(exact)} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"float32 twin: errors {errs}, exact {exact}")
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
 def main() -> int:
     args = parse_args()
+    if args.sharded_rank is not None:    # started by sharded_phase
+        return sharded_rank(args)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script only runs on the GPU",
               file=sys.stderr)
@@ -3382,6 +4133,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     tr_launches, tr_tc = train_phase(args, counters)
     phase_done("train")
+    gc.collect()
+    torch.cuda.empty_cache()
+    sh_launches, sh_tc = sharded_phase(args, counters)
+    phase_done("sharded")
     # each kernel's main-path count: the dense cluster serve for the two
     # kernels of the dense plane, the paged cluster serve for the others
     main_launches = dict(launches, flash_decode=dense_launches["flash_decode"],
@@ -3420,7 +4175,8 @@ def main() -> int:
                        "llama4_serve": l4_tc.get(name, 0),
                        "dense_families": df_tc.get(name, 0),
                        "other_families": of_tc.get(name, 0),
-                       "train": tr_tc.get(name, 0)}}
+                       "train": tr_tc.get(name, 0),
+                       "sharded": sh_tc.get(name, 0)}}
         kernels.append({
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1], "launches": main_launches[name],
@@ -3431,7 +4187,8 @@ def main() -> int:
                                  "llama4_serve": l4_launches.get(name, 0),
                                  "dense_families": df_launches.get(name, 0),
                                  "other_families": of_launches.get(name, 0),
-                                 "train": tr_launches.get(name, 0)},
+                                 "train": tr_launches.get(name, 0),
+                                 "sharded": sh_launches.get(name, 0)},
             "max_abs_err": max(r["err"] for dt, r in rows
                                if dt.split("/")[0] in ("bfloat16", "int32")),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],

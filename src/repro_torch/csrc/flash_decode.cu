@@ -51,6 +51,13 @@
 //   then TILE slots at a time are staged in shared memory as f32 (int8
 //   dequantized and rounded as above) and merged by split_kv_decode.cuh's
 //   attend_tile, which applies the softcap.
+//
+// Split-K decode (models/transformer.py::split_decode, the reference's
+// transformer.py::_split_decode) calls this kernel once per shard of the
+// ring's slots: the shard is a slice [l0, l0 + L) of the caches read in
+// place (rows bstride slots apart), and with lse non-null the combine
+// writes the shard's output in f32, unrounded, and each row's
+// log-sum-exp, so the shards merge in f32 as the reference merges them.
 #include <type_traits>
 
 #include "split_kv_decode.cuh"
@@ -73,8 +80,8 @@ flash_decode_partial(const T* __restrict__ q, const TK* __restrict__ kc,
                      const float* __restrict__ vsc,
                      const int* __restrict__ k_pos,
                      const int* __restrict__ q_pos, Partials part, int Hq,
-                     int Hkv, int hd, int L, int n_split, int split_tokens,
-                     int window, float scale, float cap) {
+                     int Hkv, int hd, int L, int bstride, int n_split,
+                     int split_tokens, int window, float scale, float cap) {
   constexpr int VEC = 16 / sizeof(TK);
   constexpr bool QUANT = std::is_same<TK, int8_t>::value;
   const int b = blockIdx.x, h = blockIdx.y, split = blockIdx.z;
@@ -111,7 +118,7 @@ flash_decode_partial(const T* __restrict__ q, const TK* __restrict__ kc,
 #pragma unroll 2
     for (int i = tid; i < n * row_vecs; i += blockDim.x) {
       const int t = i / row_vecs, c = i - t * row_vecs;
-      const size_t row = ((size_t)b * L + slots[t0 + t]) * Hkv + h;
+      const size_t row = ((size_t)b * bstride + slots[t0 + t]) * Hkv + h;
       const size_t off = row * hd + c * VEC;
       const uint4 kraw = *reinterpret_cast<const uint4*>(kc + off);
       const uint4 vraw = *reinterpret_cast<const uint4*>(vc + off);
@@ -148,8 +155,9 @@ flash_decode_tc(const __nv_bfloat16* __restrict__ q,
                                                 __nv_bfloat16>::type* vc,
                 const float* __restrict__ ksc, const float* __restrict__ vsc,
                 const int* __restrict__ k_pos, const int* __restrict__ q_pos,
-                Partials part, int Hq, int Hkv, int L, int n_split,
-                int split_tokens, int window, float scale, float cap) {
+                Partials part, int Hq, int Hkv, int L, int bstride,
+                int n_split, int split_tokens, int window, float scale,
+                float cap) {
   const int b = blockIdx.x, h = blockIdx.y, split = blockIdx.z;
   const int G = Hq / Hkv;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -179,7 +187,7 @@ flash_decode_tc(const __nv_bfloat16* __restrict__ q,
   }
   __syncthreads();
   const auto rows = [&](int i) -> size_t {
-    return ((size_t)b * L + slots[i]) * Hkv + h;
+    return ((size_t)b * bstride + slots[i]) * Hkv + h;
   };
   split_kv_tc::attend_slice<HD, QUANT, QUANT>(
       q + ((size_t)b * Hq + (size_t)h * G) * HD, G, kc, vc, ksc, vsc, n,
@@ -191,9 +199,10 @@ flash_decode_tc(const __nv_bfloat16* __restrict__ q,
 template <bool QUANT>
 int launch_tc(const void* q, const void* kc, const void* vc, const void* ksc,
               const void* vsc, const void* k_pos, const void* q_pos,
-              const Partials& part, void* out, int B, int Hq, int Hkv, int hd,
-              int L, int n_split, int split_tokens, int window, float scale,
-              float cap, int device, cudaStream_t stream) {
+              const Partials& part, void* out, float* lse, int B, int Hq,
+              int Hkv, int hd, int L, int bstride, int n_split,
+              int split_tokens, int window, float scale, float cap,
+              int device, cudaStream_t stream) {
   using TK = typename std::conditional<QUANT, int8_t, __nv_bfloat16>::type;
   int err = split_kv_tc::with_hd(hd, [&](auto hd_c) {
     constexpr int HD = decltype(hd_c)::value;
@@ -206,11 +215,14 @@ int launch_tc(const void* q, const void* kc, const void* vc, const void* ksc,
             static_cast<const __nv_bfloat16*>(q), static_cast<const TK*>(kc),
             static_cast<const TK*>(vc), static_cast<const float*>(ksc),
             static_cast<const float*>(vsc), static_cast<const int*>(k_pos),
-            static_cast<const int*>(q_pos), part, Hq, Hkv, L, n_split,
-            split_tokens, window, scale, cap);
+            static_cast<const int*>(q_pos), part, Hq, Hkv, L, bstride,
+            n_split, split_tokens, window, scale, cap);
     return (int)cudaGetLastError();
   });
   if (err) return err;
+  if (lse != nullptr)      // split-K shard: f32 output and log-sum-exp
+    return launch_combine<float, true>(part, out, B, Hq, hd, n_split, stream,
+                                       lse);
   return launch_combine<__nv_bfloat16, true>(part, out, B, Hq, hd, n_split,
                                              stream);
 }
@@ -218,9 +230,10 @@ int launch_tc(const void* q, const void* kc, const void* vc, const void* ksc,
 template <typename T, typename TK>
 int launch(const void* q, const void* kc, const void* vc, const void* ksc,
            const void* vsc, const void* k_pos, const void* q_pos,
-           const Partials& part, void* out, int B, int Hq, int Hkv, int hd,
-           int L, int n_split, int split_tokens, int window, float scale,
-           float cap, int device, cudaStream_t stream) {
+           const Partials& part, void* out, float* lse, int B, int Hq,
+           int Hkv, int hd, int L, int bstride, int n_split, int split_tokens,
+           int window, float scale, float cap, int device,
+           cudaStream_t stream) {
   const int G = Hq / Hkv;
   const size_t smem = sizeof(float) * state_floats(G, hd) +
                       sizeof(int) * (split_tokens + 1);
@@ -231,10 +244,13 @@ int launch(const void* q, const void* kc, const void* vc, const void* ksc,
           static_cast<const T*>(q), static_cast<const TK*>(kc),
           static_cast<const TK*>(vc), static_cast<const float*>(ksc),
           static_cast<const float*>(vsc), static_cast<const int*>(k_pos),
-          static_cast<const int*>(q_pos), part, Hq, Hkv, hd, L, n_split,
-          split_tokens, window, scale, cap);
+          static_cast<const int*>(q_pos), part, Hq, Hkv, hd, L, bstride,
+          n_split, split_tokens, window, scale, cap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  if (lse != nullptr)      // split-K shard: f32 output and log-sum-exp
+    return launch_combine<float, false>(part, out, B, Hq, hd, n_split, stream,
+                                        lse);
   return launch_combine<T, false>(part, out, B, Hq, hd, n_split, stream);
 }
 
@@ -251,18 +267,28 @@ int launch(const void* q, const void* kc, const void* vc, const void* ksc,
 // [z * split_tokens, (z + 1) * split_tokens); scratch is f32 of B * Hq *
 // n_split * (hd + 2) floats (split_kv::Partials) with n_split *
 // split_tokens >= L. hd * sizeof(cache type) must be a multiple of 16 and
-// the caches 16-byte aligned. Returns the cudaError_t of the launches.
+// the caches 16-byte aligned. Row b of the caches (and of the scales)
+// starts bstride slots after row b - 1 (bstride >= L): a slice [l0, l0 + L)
+// of a longer cache is read in place, as split-K decode reads its shards.
+// lse null: out (B, Hq, hd) in q's type. lse non-null (a split-K shard):
+// out is f32 whatever q's type, unrounded, and lse (B, Hq) f32 gets each
+// row's log-sum-exp of the scaled (capped) scores over its valid slots, -inf
+// where there is none, so shards combine as
+// out = sum_s exp(lse_s - max lse) out_s / sum_s exp(lse_s - max lse).
+// Returns the cudaError_t of the launches.
 extern "C" int flash_decode_launch(const void* q, const void* k_cache,
                                    const void* v_cache, const void* k_scales,
                                    const void* v_scales, const void* k_pos,
                                    const void* q_pos, void* scratch,
-                                   void* out, int B, int Hq, int Hkv, int hd,
-                                   int L, int n_split, int split_tokens,
-                                   int window, float scale, float softcap,
-                                   int dtype, int device, void* stream) {
+                                   void* out, void* lse, int B, int Hq,
+                                   int Hkv, int hd, int L, int bstride,
+                                   int n_split, int split_tokens, int window,
+                                   float scale, float softcap, int dtype,
+                                   int device, void* stream) {
   cudaError_t err = split_kv::use_device(device);
   if (err != cudaSuccess) return (int)err;
-  if (split_tokens <= 0 || (long long)n_split * split_tokens < L)
+  if (split_tokens <= 0 || (long long)n_split * split_tokens < L ||
+      bstride < L)
     return (int)cudaErrorInvalidValue;
   if ((k_scales == nullptr) != (v_scales == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -271,8 +297,9 @@ extern "C" int flash_decode_launch(const void* q, const void* k_cache,
   const bool quant = k_scales != nullptr;
   const Partials part(scratch, B, Hq, n_split, hd);
 #define FLASH_DECODE_ARGS                                                    \
-  q, k_cache, v_cache, k_scales, v_scales, k_pos, q_pos, part, out, B, Hq,  \
-      Hkv, hd, L, n_split, split_tokens, window, scale, softcap, device, s
+  q, k_cache, v_cache, k_scales, v_scales, k_pos, q_pos, part, out,         \
+      static_cast<float*>(lse), B, Hq, Hkv, hd, L, bstride, n_split,        \
+      split_tokens, window, scale, softcap, device, s
   if (dtype == 0)
     return quant ? launch<float, int8_t>(FLASH_DECODE_ARGS)
                  : launch<float, float>(FLASH_DECODE_ARGS);

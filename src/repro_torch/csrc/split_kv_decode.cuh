@@ -209,10 +209,15 @@ __device__ __forceinline__ float block_reduce(float v, float* red, Op op) {
 // w + COMBINE_WARPS, ..., four columns a lane (16-byte loads), and the
 // warps' sums are added in warp order, so the result does not depend on
 // timing. EXP2: the maxima are in log2 units (the tensor-core route), so
-// the weight is exp2(m_s - m). hd must be a multiple of 4.
+// the weight is exp2(m_s - m). hd must be a multiple of 4. With lse
+// non-null (split-K decode across shards of a cache, T = float) the block
+// also writes its row's natural-log log-sum-exp, m + log(l) (m taken back
+// from log2 units on the tensor-core route), or -inf for a row with no
+// token, so that shards' outputs can be merged as the partials are here.
 template <typename T, bool EXP2>
 __global__ void __launch_bounds__(COMBINE_THREADS)
-combine(Partials part, T* __restrict__ out, int Hq, int hd, int n_split) {
+combine(Partials part, T* __restrict__ out, float* __restrict__ lse, int Hq,
+        int hd, int n_split) {
   extern __shared__ float sm[];   // wts [n_split, rounded up to 4], sums
   float* wts = sm;
   float* sums = sm + ((n_split + 3) & ~3);          // [COMBINE_WARPS][hd]
@@ -254,17 +259,21 @@ combine(Partials part, T* __restrict__ out, int Hq, int hd, int n_split) {
     for (int w = 1; w < COMBINE_WARPS; ++w) a += sums[w * hd + d];
     out[((size_t)b * Hq + hq) * hd + d] = from_f<T>(a / fmaxf(l, 1e-30f));
   }
+  if (lse != nullptr && tid == 0)
+    lse[(size_t)b * Hq + hq] =
+        l > 0.f ? (EXP2 ? m * 0.69314718055994531f : m) + logf(l)
+                : __int_as_float((int)0xff800000u);  // -inf
 }
 
 template <typename T, bool EXP2>
 int launch_combine(const Partials& p, void* out, int B, int Hq, int hd,
-                   int n_split, cudaStream_t stream) {
+                   int n_split, cudaStream_t stream, float* lse = nullptr) {
   if (n_split > MAX_SPLITS || hd % 4 || hd > 1024)
     return (int)cudaErrorInvalidValue;
   const size_t smem =
       sizeof(float) * (((n_split + 3) & ~3) + COMBINE_WARPS * hd);
   combine<T, EXP2><<<dim3(B, Hq), COMBINE_THREADS, smem, stream>>>(
-      p, static_cast<T*>(out), Hq, hd, n_split);
+      p, static_cast<T*>(out), lse, Hq, hd, n_split);
   return (int)cudaGetLastError();
 }
 

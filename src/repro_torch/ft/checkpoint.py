@@ -17,8 +17,8 @@ Two halves: model checkpoints of any nesting of tensors
 (``save_checkpoint``, ``restore_checkpoint``, ``checkpoint_step``: params,
 or a whole ``TrainState``), and the serving control plane's snapshots
 (``save_serving_state`` and its two readers). The reference's
-``shardings=`` waits for the port's multi-device work (ROADMAP.md Queue A
-item 11); ``restore_checkpoint`` takes a ``device`` in its place.
+``shardings=`` waits for ROADMAP.md Queue A item 11b (training under a
+policy); ``restore_checkpoint`` takes a ``device`` in its place.
 """
 from __future__ import annotations
 

@@ -147,19 +147,38 @@ def pack_kv_into_pages(k, v, pool_k, pool_v, k_scale, v_scale, block_tables,
     pack_kv.launches += 1
 
 
-def pack_kv_into_ring(k, v, cache_k, cache_v, k_scale, v_scale, positions):
+def pack_kv_into_ring(k, v, cache_k, cache_v, k_scale, v_scale, positions,
+                      *, ring_len=None, slot0: int = 0):
     """The int8 write of a dense (ring) cache: quantize k and v (B, S, Hkv,
     hd) row by row into cache_k, cache_v (B, L, Hkv, hd) int8 and k_scale,
     v_scale (B, L, Hkv) f32, in place, the token at position p of row b at
     slot p % L. The cache is seen as a pool of B pages of L slots with the
     block table ``arange(B)[:, None]``, so :func:`pack_kv_into_pages` does
     it in one launch. Every row is written: no two of a row's positions may
-    share a slot (the caller passes at most L consecutive positions)."""
+    share a slot (the caller passes at most L consecutive positions).
+
+    A rank holding slots [slot0, slot0 + L) of a longer ring of
+    ``ring_len`` (split-K's cut of the cache, ``distributed/sharding.py``)
+    writes only the rows whose slot p % ring_len falls in its range: those
+    rows are passed to the same launch as one-row pages of their batch
+    row's page, at their local slots; no launch where the rank holds none
+    of them."""
     B = positions.shape[0]
-    bt = torch.arange(B, dtype=torch.int32, device=k.device)[:, None]
-    valid = torch.ones(positions.shape, dtype=torch.bool, device=k.device)
-    pack_kv_into_pages(k, v, cache_k, cache_v, k_scale, v_scale, bt,
-                       positions.to(torch.int32), valid)
+    L = cache_k.shape[1]
+    if (ring_len is None or ring_len == L) and slot0 == 0:
+        bt = torch.arange(B, dtype=torch.int32, device=k.device)[:, None]
+        valid = torch.ones(positions.shape, dtype=torch.bool, device=k.device)
+        pack_kv_into_pages(k, v, cache_k, cache_v, k_scale, v_scale, bt,
+                           positions.to(torch.int32), valid)
+        return
+    slots = positions.long() % ring_len - slot0
+    b, t = torch.nonzero((slots >= 0) & (slots < L), as_tuple=True)
+    if not b.numel():
+        return
+    ones = torch.ones((b.numel(), 1), dtype=torch.bool, device=k.device)
+    pack_kv_into_pages(k[b, t][:, None], v[b, t][:, None], cache_k, cache_v,
+                       k_scale, v_scale, b.to(torch.int32)[:, None],
+                       slots[b, t].to(torch.int32)[:, None], ones)
 
 
 def unpack_kv(q, s, dtype=torch.float32):

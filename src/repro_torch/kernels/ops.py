@@ -45,10 +45,11 @@ _ENTRIES = {
     # x, w, out, E, C, D, F, dtype, device, stream
     "moe_gmm_padded": ("moe_gmm", [_P] * 3 + [_I] * 6 + [_P]),
     # q, k_cache, v_cache, k_scales, v_scales (null for caches in q's
-    # type), k_pos, q_pos, scratch, out, B, Hq, Hkv, hd, L, n_split,
-    # split_tokens, window, scale, softcap, dtype, device, stream
+    # type), k_pos, q_pos, scratch, out, lse (null but for a split-K
+    # shard), B, Hq, Hkv, hd, L, bstride, n_split, split_tokens, window,
+    # scale, softcap, dtype, device, stream
     "flash_decode": ("flash_decode",
-                     [_P] * 9 + [_I] * 8 + [_F, _F, _I, _I, _P]),
+                     [_P] * 10 + [_I] * 9 + [_F, _F, _I, _I, _P]),
     # expert_idx, source_ids, b_out, a_out, T, K, E, S, single_block_slots,
     # device, stream
     "source_expert_count": ("source_expert_count",

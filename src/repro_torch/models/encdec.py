@@ -17,6 +17,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import require_one_rank
 from repro_torch.models.attention import flash_attention, ring_positions
 from repro_torch.models.layers import (cross_entropy, dense_init,
                                        embed_tokens, init_embed, init_mlp,
@@ -159,11 +160,12 @@ def _dec_stack(params, cfg, x, positions, cache, enc_out, enc_positions,
 
 
 def loss_fn(params, cfg: ModelConfig, batch, *, placement=None,
-            aux_weight: float = 0.0, ragged: bool = True):
+            policy=None, aux_weight: float = 0.0, ragged: bool = True):
     """batch: {embeddings (B, S_src, D), tokens (B, S), labels (B, S), mask
     optional} -> (loss, {"ce", "aux"}): the token cross-entropy of the
     decoder over the encoded frames; no aux loss. The routing keywords are
     accepted and unused."""
+    require_one_rank(policy, f"{cfg.name}: loss_fn")
     enc_out = encode(params, cfg, batch["embeddings"])
     B, S_src = enc_out.shape[:2]
     x = embed_tokens(params["embed"], cfg, batch["tokens"])
@@ -178,11 +180,12 @@ def loss_fn(params, cfg: ModelConfig, batch, *, placement=None,
 
 
 def prefill(params, cfg: ModelConfig, batch, cache, *, placement=None,
-            source_ids=None, n_sources: int = 0, collect_stats: bool = True,
-            ragged: bool = True):
+            source_ids=None, n_sources: int = 0, policy=None,
+            collect_stats: bool = True, ragged: bool = True):
     """batch: {embeddings (B, S_src, D), tokens (B, S), lengths (B,)
     optional} -> (logits at each row's last real token (B, V), cache,
     None). The routing keywords are accepted and unused."""
+    require_one_rank(policy, f"{cfg.name}: prefill")
     enc_out = encode(params, cfg, batch["embeddings"])
     B, S_src = enc_out.shape[:2]
     x = embed_tokens(params["embed"], cfg, batch["tokens"])
@@ -201,12 +204,13 @@ def prefill(params, cfg: ModelConfig, batch, cache, *, placement=None,
 
 def decode_step(params, cfg: ModelConfig, tokens, cache, lengths, *,
                 placement=None, source_ids=None, n_sources: int = 0,
-                collect_stats: bool = True, ragged: bool = True,
+                policy=None, collect_stats: bool = True, ragged: bool = True,
                 enc_lengths=None):
     """tokens (B,) at positions ``lengths`` (B,) -> (logits (B, V), cache,
     None). ``enc_lengths`` (B,) masks the cross-KV slots at or past each
     row's encoder length (never written); without it every slot of the
     cross cache is attended, as in the reference."""
+    require_one_rank(policy, f"{cfg.name}: decode_step")
     x = embed_tokens(params["embed"], cfg, tokens[:, None])
     B = x.shape[0]
     positions = lengths.to(torch.int32)[:, None]

@@ -26,9 +26,12 @@ DRAW_BYTES = 2 << 30
 
 def _draw(shape, dtype, device, fill):
     """A leaf of ``dtype`` whose values are ``fill(f32 buffer)`` cast down,
-    filled slice by slice along the first axis."""
+    filled slice by slice along the first axis. On the ``meta`` device
+    (abstract params: shapes and dtypes only) nothing is drawn."""
     shape = tuple(shape)
     out = torch.empty(shape, dtype=dtype, device=device)
+    if out.device.type == "meta":
+        return out
     row = 4 * int(np.prod(shape[1:], dtype=np.int64))
     step = max(1, DRAW_BYTES // max(row, 1))
     for i in range(0, shape[0], step):
@@ -98,13 +101,20 @@ def init_mlp(d_model: int, d_ff: int, dtype=torch.bfloat16, *,
     }
 
 
-def mlp(params, x):
+def mlp(params, x, policy=None, d_ff: int = 0):
     """SwiGLU MLP. x: (..., D). silu runs in f32 and is cast back before
-    the product with ``up``."""
+    the product with ``up``. Under a policy whose ``model`` axis cuts the
+    FFN width ``d_ff`` (column blocks of w_gate and w_up, row blocks of
+    w_down on each rank), the ranks' partial products are summed over
+    ``model`` in f32."""
     gate = x @ params["w_gate"]
     up = x @ params["w_up"]
     h = F.silu(gate.float()).to(x.dtype) * up
-    return h @ params["w_down"]
+    out = h @ params["w_down"]
+    if policy is not None and d_ff and policy.splits(d_ff,
+                                                    policy.model_axis):
+        out = policy.all_reduce(out.float(), policy.model_axis).to(x.dtype)
+    return out
 
 
 # ---------------------------------------------------------------- embedding
@@ -117,8 +127,24 @@ def init_embed(cfg, *, generator: torch.Generator, device="cuda"):
     return p
 
 
-def embed_tokens(params, cfg, tokens):
-    x = params["embedding"][tokens.long()]
+def embed_tokens(params, cfg, tokens, policy=None):
+    """Under a policy whose ``model`` axis cuts the vocabulary, each rank
+    holds a block of the table's rows: it looks up the tokens in its block
+    (zeros elsewhere) and the blocks are summed over ``model``, which
+    leaves every value exact."""
+    table = params["embedding"]
+    if policy is not None and policy.splits(cfg.vocab_size,
+                                            policy.model_axis):
+        M = policy.model_axis
+        rows = table.shape[0]
+        t = tokens.long() - policy.index(M) * rows
+        own = ((t >= 0) & (t < rows))[..., None]
+        x = torch.where(own, table[t.clamp(0, rows - 1)],
+                        torch.zeros((), dtype=table.dtype,
+                                    device=table.device))
+        x = policy.all_reduce(x, M)
+    else:
+        x = table[tokens.long()]
     if cfg.tie_embeddings:
         # gemma-style sqrt(d) scale, tied-embedding families only
         x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=x.dtype,
@@ -126,14 +152,20 @@ def embed_tokens(params, cfg, tokens):
     return x
 
 
-def lm_logits(params, cfg, x):
+def lm_logits(params, cfg, x, policy=None):
     """The product runs in the model dtype and is then cast to f32, so the
-    logits carry the model dtype's rounding."""
+    logits carry the model dtype's rounding. Under a policy whose ``model``
+    axis cuts the vocabulary, each rank computes its block of columns and
+    the blocks are gathered: every rank returns the whole (..., V)."""
     if cfg.tie_embeddings:
         logits = x @ params["embedding"].T
     else:
         logits = x @ params["lm_head"]
-    return softcap(logits.float(), cfg.final_logit_softcap)
+    logits = logits.float()
+    if policy is not None and policy.splits(cfg.vocab_size,
+                                            policy.model_axis):
+        logits = policy.all_gather(logits, policy.model_axis, dim=-1)
+    return softcap(logits, cfg.final_logit_softcap)
 
 
 def cross_entropy(logits, labels, mask=None):

@@ -24,6 +24,18 @@ caller may keep reassigning its cache from the return value as with the
 reference. ``ragged`` picks the MoE dispatch of every layer: the ragged
 path (default) or the capacity-padded one.
 
+The dense-cache entry points and ``loss_fn`` take the reference's
+``policy`` (``distributed/sharding.py``). Over several ranks ``prefill`` and
+``decode_step`` run SPMD with explicit collectives: TP heads and FFN
+columns over ``model`` (k and v gathered to every KV head, the output
+projection's partial sums reduced), a vocabulary-parallel embedding and
+head, experts over ``model`` (``moe.py``), and the ring cache cut over the
+policy's ``kv_split_axes`` with split-K decode (:func:`split_decode`, the
+reference's ``_split_decode``); a policy over one rank changes no bit, and
+a ``kv_split`` forced above one there runs the shards one after another.
+A hybrid config, and ``loss_fn``, take a policy over one rank only (ROADMAP
+Queue A item 11b); the paged entry points take none, as in the reference.
+
 ``loss_fn`` is the training entry point: causal attention over the whole
 sequence (mode ``"train"``, no cache), each super-block recomputed in the
 backward (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``),
@@ -42,11 +54,13 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.bridge import tree_leaves, tree_map
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import require_one_rank
 from repro_torch.kernels.kv_pack import (pack_kv_into_pages,
                                          pack_kv_into_ring, page_slots,
                                          unpack_kv)
 from repro_torch.kernels.paged_decode import paged_decode
 from repro_torch.models import moe as moe_mod
+from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.models.attention import (decode_attention,
                                           flash_attention, ring_positions)
 from repro_torch.models.layers import (apply_rope, cross_entropy, dense_init,
@@ -318,13 +332,35 @@ def copy_pages(pages, copies):
 
 # ------------------------------------------------------------------ attention
 def _qkv(lp, cfg, xn, positions):
+    """q, k, v (B, S, H, hd) after the norms and RoPE."""
+    return _qkv_heads(lp, cfg, xn, positions)[:3]
+
+
+def _qkv_heads(lp, cfg, xn, positions, policy=None, full_q=False):
+    """q, k, v (B, S, H, hd) after the norms and RoPE, and the first query
+    head of q. Under a policy whose ``model`` axis cuts the projections'
+    columns, each rank projects its own columns; k and v are gathered to
+    all KV heads (the cache holds them all), and q too where the cut does
+    not fall between heads, or ``full_q`` asks for every head (split-K
+    decode attends with all of them)."""
     B, S, _ = xn.shape
     q = xn @ lp["wq"]
     k = xn @ lp["wk"]
     v = xn @ lp["wv"]
     if cfg.qkv_bias:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
-    q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
+    h0 = 0
+    if policy is not None:
+        M = policy.model_axis
+        if policy.splits(cfg.kv_dim, M):
+            k = policy.all_gather(k, M, dim=-1)
+            v = policy.all_gather(v, M, dim=-1)
+        if policy.splits(cfg.q_dim, M):
+            if full_q or cfg.n_heads % policy.model_size:
+                q = policy.all_gather(q, M, dim=-1)
+            else:
+                h0 = policy.index(M) * (cfg.n_heads // policy.model_size)
+    q = q.reshape(B, S, -1, cfg.head_dim)
     k = k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
     v = v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
@@ -332,7 +368,22 @@ def _qkv(lp, cfg, xn, positions):
         k = rms_norm(k, lp["k_norm"], cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    return q, k, v, h0
+
+
+def _kv_for_heads(cfg, k, v, h0: int, n_q: int):
+    """The KV heads that query heads [h0, h0 + n_q) read, laid out so that
+    ``flash_attention``'s grouping (G = n_q / KV heads) pairs them right."""
+    G = cfg.n_heads // cfg.n_kv_heads
+    if n_q == cfg.n_heads:
+        return k, v
+    if n_q % G == 0:                   # whole groups
+        return k[:, :, h0 // G:(h0 + n_q) // G], \
+            v[:, :, h0 // G:(h0 + n_q) // G]
+    idx = torch.arange(h0, h0 + n_q, device=k.device) // G
+    if G % n_q == 0:                   # part of one group
+        return k[:, :, idx[:1]], v[:, :, idx[:1]]
+    return k[:, :, idx], v[:, :, idx]  # one KV head per query head
 
 
 def _paged_attention(cfg, q, k, v, positions, cache, mode, paged):
@@ -398,71 +449,197 @@ def _paged_attention(cfg, q, k, v, positions, cache, mode, paged):
     return out, cache
 
 
-def _dense_attention(cfg, desc, q, k, v, positions, cache, mode):
+def kv_layout(cfg, desc, L_loc: int, policy=None):
+    """(L, l0, n_local) of one layer's ring cache on this rank: the rank
+    holds slots [l0, l0 + L_loc) of a ring of L, and decode runs
+    ``n_local`` split-K shards over them one after another (0: no split,
+    one decode over the whole ring). The spec (``cache_specs_tree``) cuts
+    the ring over ``kv_split_axes`` when ``kv_split > 1`` divides L; the
+    shards beyond the axes' ranks (``kv_split`` forced above them, as the
+    reference's ``policy_overrides`` do) run on the same rank."""
+    if policy is None:
+        return L_loc, 0, 0
+    axes = policy.kv_split_axes
+    n_ax = policy.size(axes)
+    if n_ax == 1:
+        L = L_loc
+    elif policy.cache_len > 0:
+        L = kv_len_for(cfg, desc, policy.cache_len)
+    else:
+        raise ValueError("a policy that cuts the cache over ranks needs "
+                         "cache_len (make_policy sets it from a decode or "
+                         "prefill shape)")
+    if not (policy.kv_split > 1 and L % policy.kv_split == 0):
+        if L_loc != L:
+            raise ValueError(f"cache of {L_loc} slots under a policy that "
+                             f"keeps a ring of {L} whole")
+        return L, 0, 0
+    if policy.kv_split % n_ax or L_loc * n_ax != L:
+        raise ValueError(f"kv_split {policy.kv_split} over {axes} "
+                         f"({n_ax} ranks) does not fit {L_loc} of {L} slots")
+    return L, policy.index(axes) * L_loc, policy.kv_split // n_ax
+
+
+def combine_partials(outs, lses):
+    """Merge split-K shards as the reference's ``_split_decode`` does:
+    outs (n, B, Hq, hd) f32 and lses (n, B, Hq) (-inf: a shard with no
+    valid slot) -> (B, Hq, hd) f32. With m* the largest lse and
+    w = exp(lse - m*) (0 for an empty shard), out = sum w out / max(sum w,
+    1e-30): the reference's sum w acc / max(sum w l, 1e-30) with acc = l
+    out and l = exp(lse - m)."""
+    m = lses.amax(dim=0)
+    w = torch.where(torch.isneginf(lses), torch.zeros_like(lses),
+                    torch.exp(lses - m))
+    acc = (outs * w[..., None]).sum(dim=0)
+    return acc / torch.clamp(w.sum(dim=0), min=1e-30)[..., None]
+
+
+def _shard_partials(q1, ck, cv, k_pos, q_pos, window, cap, k_scale, v_scale,
+                    n: int):
+    """The ``n`` split-K shards of a cache (B, L, Hkv, hd), one
+    ``flash_decode`` launch each on its slice of the slots (read in place),
+    -> (outputs (n, B, Hq, hd) f32, log-sum-exps (n, B, Hq))."""
+    Ls = ck.shape[1] // n
+    outs, lses = [], []
+    for i in range(n):
+        sl = slice(i * Ls, (i + 1) * Ls)
+        o, lse = flash_decode(
+            q1, ck[:, sl], cv[:, sl], k_pos[:, sl].contiguous(), q_pos,
+            window=window, softcap=cap,
+            k_scale=None if k_scale is None else k_scale[:, sl],
+            v_scale=None if v_scale is None else v_scale[:, sl],
+            return_lse=True)
+        outs.append(o)
+        lses.append(lse)
+    return torch.stack(outs), torch.stack(lses)
+
+
+def split_decode(q, ck, cv, positions, k_pos, window, cap, n_split,
+                 k_scale=None, v_scale=None, policy=None):
+    """Flash decode with the KV split across ``n_split`` shards (split-K),
+    the reference's ``_split_decode``. q (B, 1, Hq, hd); ck, cv (B, L, Hkv,
+    hd) this rank's slots; k_pos (B, L) their positions. Without a split
+    (``n_split`` <= 1 or not dividing L) one ``decode_attention``.
+    Otherwise each shard's partial output (f32) and log-sum-exp come from
+    ``flash_decode``; under a policy whose ``kv_split_axes`` span several
+    ranks, ``n_split`` is the shards of this rank's slots and the partials
+    of all ranks are gathered over those axes; all are combined in f32
+    (:func:`combine_partials`)."""
+    L = ck.shape[1]
+    across = policy is not None and policy.size(policy.kv_split_axes) > 1
+    if not across and (n_split <= 1 or L % n_split):
+        return decode_attention(q, ck, cv, q_pos=positions, k_pos=k_pos,
+                                window=window, softcap_val=cap,
+                                k_scale=k_scale, v_scale=v_scale)
+    outs, lses = _shard_partials(
+        q[:, 0].contiguous(), ck, cv, k_pos.to(torch.int32),
+        positions[:, 0].to(torch.int32).contiguous(), window, cap, k_scale,
+        v_scale, n_split)
+    if policy is not None:
+        outs = policy.all_gather(outs, policy.kv_split_axes, dim=0)
+        lses = policy.all_gather(lses, policy.kv_split_axes, dim=0)
+    return combine_partials(outs, lses).to(q.dtype)[:, None]
+
+
+def _write_ring(cache, k, v, wpos, L: int, l0: int):
+    """Write rows k, v (B, n, Hkv, hd) at positions wpos (B, n) into this
+    rank's slots [l0, l0 + L_loc) of a ring of L (slot p % L), in place;
+    rows whose slot another rank holds are skipped. An int8 cache
+    quantizes through ``pack_kv_into_ring``, one launch on the card."""
+    ck, cv = cache["k"], cache["v"]
+    L_loc = ck.shape[1]
+    if "k_scale" in cache:
+        pack_kv_into_ring(k, v, ck, cv, cache["k_scale"], cache["v_scale"],
+                          wpos, ring_len=L, slot0=l0)
+        return
+    if L_loc == L:
+        bidx = torch.arange(k.shape[0], device=k.device)[:, None]
+        slots = (wpos % L).long()
+        ck[bidx, slots] = k
+        cv[bidx, slots] = v
+        return
+    slots = (wpos % L).long() - l0
+    b, t = torch.nonzero((slots >= 0) & (slots < L_loc), as_tuple=True)
+    ck[b, slots[b, t]] = k[b, t]
+    cv[b, slots[b, t]] = v[b, t]
+
+
+def _dense_attention(cfg, desc, q, k, v, positions, cache, mode, h0=0,
+                     policy=None):
     """Dense slot-indexed KV: write the new k/v into the cache rows (in
     place), then attend. cache: {"k": (B, L, Hkv, hd), "v": ...}, one
     super-block slice; int8 caches also hold "k_scale", "v_scale" (B, L,
     Hkv).
 
     prefill: causal flash attention over the S new tokens (unquantized, as
-    in the reference); the cache keeps them at slots [0, S), or the last L
-    at slots pos % L when L < S (ring). decode (S == 1): the token at
-    position p goes to slot p % L, and the slots' positions come from
-    ``ring_positions``. An int8 cache's write quantizes each row through
-    ``pack_kv_into_ring``, one launch for K and V on the card."""
+    in the reference) for the query heads q holds (from h0); the cache
+    keeps them at slots [0, S), or the last L at slots pos % L when L < S
+    (ring). decode (S == 1): the token at position p goes to slot p % L,
+    and the slots' positions come from ``ring_positions``; the attention
+    is :func:`split_decode` with the policy's ``kv_split`` (one decode
+    without a policy). An int8 cache's write quantizes each row through
+    ``pack_kv_into_ring``, one launch for K and V on the card. Under a
+    policy the cache holds this rank's slots of the ring (:func:`kv_layout`)
+    and only those are written."""
     B, S = positions.shape
     window = cfg.sliding_window if desc.local else 0
     ck, cv = cache["k"], cache["v"]
     cks, cvs = cache.get("k_scale"), cache.get("v_scale")
-    L = ck.shape[1]
+    L, l0, n_local = kv_layout(cfg, desc, ck.shape[1], policy)
     wpos = positions                                   # the rows written
     if mode == "prefill":
-        out = flash_attention(q, k, v, q_pos=positions, k_pos=positions,
+        kq, vq = _kv_for_heads(cfg, k, v, h0, q.shape[2])
+        out = flash_attention(q, kq, vq, q_pos=positions, k_pos=positions,
                               causal=True, window=window,
                               softcap_val=cfg.attn_logit_softcap)
         if L < S:          # ring: keep the last L tokens at slots pos % L
             k, v, wpos = k[:, S - L:], v[:, S - L:], positions[:, S - L:]
-    if cks is not None:
-        pack_kv_into_ring(k, v, ck, cv, cks, cvs, wpos)
-    else:
-        bidx = torch.arange(B, device=q.device)[:, None]
-        slots = (wpos % L).long()
-        ck[bidx, slots] = k
-        cv[bidx, slots] = v
+    _write_ring(cache, k, v, wpos, L, l0)
     if mode == "prefill":
         return out, cache
     pos = positions[:, 0]                              # (B,) current position
-    # the reference's _split_decode with one shard: the port has no
-    # sharding policy to split the KV across
-    out = decode_attention(q, ck, cv, q_pos=positions,
-                           k_pos=ring_positions(pos, L), window=window,
-                           softcap_val=cfg.attn_logit_softcap, k_scale=cks,
-                           v_scale=cvs)
+    k_pos = ring_positions(pos, L)[:, l0:l0 + ck.shape[1]]
+    out = split_decode(q, ck, cv, positions, k_pos, window,
+                       cfg.attn_logit_softcap, n_local, cks, cvs,
+                       policy if n_local else None)
     return out, cache
 
 
-def attention_block(lp, cfg, desc, x, positions, cache, mode, paged):
+def attention_block(lp, cfg, desc, x, positions, cache, mode, paged=None,
+                    policy=None):
     """x: (B, S, D); positions (B, S). Returns (attn_out, cache). Mode
     ``"train"``: causal attention over the S tokens with the layer's window
-    and softcap, no cache."""
+    and softcap, no cache. Under a policy: TP heads (each rank projects its
+    columns of wq, wk, wv; k and v gathered to all KV heads), the ring cut
+    over the policy's ``kv_split_axes`` with split-K decode, and the output
+    projection's row blocks summed over ``model``."""
     if mode not in ("train", "prefill", "decode", "paged_prefill",
                     "paged_decode"):
         raise ValueError(f"unknown attention mode {mode!r}")
     B, S, _ = x.shape
     xn = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
-    q, k, v = _qkv(lp["attn"], cfg, xn, positions)
-    if mode == "train":
+    q, k, v, h0 = _qkv_heads(lp["attn"], cfg, xn, positions, policy,
+                             full_q=mode == "decode")
+    if mode == "train":              # one rank: every head (check_policy)
         out = flash_attention(q, k, v, q_pos=positions, k_pos=positions,
                               causal=True,
                               window=cfg.sliding_window if desc.local else 0,
                               softcap_val=cfg.attn_logit_softcap)
     elif mode in ("prefill", "decode"):
         out, cache = _dense_attention(cfg, desc, q, k, v, positions, cache,
-                                      mode)
+                                      mode, h0, policy)
     else:
         out, cache = _paged_attention(cfg, q, k, v, positions, cache, mode,
                                       paged)
-    out = out.reshape(B, S, cfg.q_dim) @ lp["attn"]["wo"]
+    out = out.reshape(B, S, -1)
+    M = policy.model_axis if policy is not None else None
+    if policy is not None and policy.splits(cfg.q_dim, M):
+        if out.shape[-1] == cfg.q_dim:     # every head: keep this rank's
+            out = policy.take_block(out, M, -1)
+        out = policy.all_reduce((out @ lp["attn"]["wo"]).float(), M) \
+            .to(x.dtype)
+    else:
+        out = out @ lp["attn"]["wo"]
     if cfg.post_norms:
         out = rms_norm(out, lp["post_attn_norm"], cfg.norm_eps)
     return out, cache
@@ -471,13 +648,13 @@ def attention_block(lp, cfg, desc, x, positions, cache, mode, paged):
 # ------------------------------------------------------------------ layer
 def decoder_layer(lp, cfg, desc, x, positions, cache, mode, placement_row,
                   source_ids, n_sources, collect_stats=True, paged=None,
-                  ragged=True):
+                  ragged=True, policy=None):
     """Returns (x, cache, stats_or_None). A hybrid layer's mamba branch
     starts from zeros in prefill and train and from the cache's state in
     decode, and in prefill and decode writes its final state into the cache
     in place."""
     attn_out, cache = attention_block(lp, cfg, desc, x, positions, cache,
-                                      mode, paged)
+                                      mode, paged, policy)
     if desc.hybrid:
         xn = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
         state = None
@@ -502,9 +679,9 @@ def decoder_layer(lp, cfg, desc, x, positions, cache, mode, placement_row,
         y, stats = moe_mod.moe_layer(
             lp["moe"], cfg, xn, placement_row, source_ids=source_ids,
             n_sources=n_sources, collect_stats=collect_stats,
-            ragged=ragged, token_mask=mask)
+            ragged=ragged, token_mask=mask, policy=policy)
     else:
-        y = mlp(lp["mlp"], xn)
+        y = mlp(lp["mlp"], xn, policy, cfg.d_ff)
     if cfg.post_norms:
         y = rms_norm(y, lp["post_ffn_norm"], cfg.norm_eps)
     return x + y, cache, stats
@@ -626,7 +803,7 @@ def commit_expert_prefetch(params, staged) -> int:
 
 def superblock_forward(blk_params, cfg, descs, x, positions, blk_cache,
                        mode, blk_placement, source_ids, n_sources,
-                       collect_stats, paged=None, ragged=True):
+                       collect_stats, paged=None, ragged=True, policy=None):
     """One super-block (period of layers). Returns (x, stats (mp, ...))."""
     stats_list = []
     mi = 0
@@ -641,7 +818,7 @@ def superblock_forward(blk_params, cfg, descs, x, positions, blk_cache,
             mi += 1
         x, _, st = decoder_layer(lp, cfg, desc, x, positions, c, mode, prow,
                                  source_ids, n_sources, collect_stats, paged,
-                                 ragged)
+                                 ragged, policy)
         if st is not None:
             stats_list.append(st)
     stats = None
@@ -653,7 +830,7 @@ def superblock_forward(blk_params, cfg, descs, x, positions, blk_cache,
 
 def _stack_forward(params, cfg, x, positions, cache, mode, placement,
                    source_ids, n_sources, collect_stats, paged=None,
-                   ragged=True, remat=False):
+                   ragged=True, remat=False, policy=None):
     """Loop over super-blocks. x: (B, S, D). The KV cache or page pool is
     written in place. ``remat``: each super-block's activations are
     recomputed in the backward instead of kept
@@ -665,14 +842,15 @@ def _stack_forward(params, cfg, x, positions, cache, mode, placement,
     placement_r = None
     if mp and placement is not None and placement.numel():
         placement_r = placement.reshape(ns, mp, -1)
-    block = layer_views(params["blocks"])
+    block = layer_views(params["blocks"]) if policy is None \
+        else _sharded_block_views(params["blocks"], ns, policy)
     per_block = []
     for i in range(ns):
         blk_cache = tree_map(lambda a: a[i], cache) \
             if cache is not None else None
         args = (block(i), cfg, descs, x, positions, blk_cache, mode,
                 placement_r[i] if placement_r is not None else None,
-                source_ids, n_sources, collect_stats, paged, ragged)
+                source_ids, n_sources, collect_stats, paged, ragged, policy)
         if remat:
             x, stats = checkpoint(superblock_forward, *args,
                                   use_reentrant=False)
@@ -687,21 +865,47 @@ def _stack_forward(params, cfg, x, positions, cache, mode, placement,
     return x, cache, stats
 
 
-def _inputs_to_embed(params, cfg, batch):
+def _sharded_block_views(blocks, ns: int, policy):
+    """``i -> `` super-block i's params on this rank. A stacked leaf whose
+    super-block dimension the spec cuts over ``model`` (a MoE layer's shared
+    expert, whose 3-d rule lands on that dimension) holds ns / m blocks: its
+    block i is on one ``model`` rank, and None on the others."""
+    def view(i):
+        def pick(a):
+            if a.shape[0] == ns:
+                return a[i]
+            n_loc = a.shape[0]
+            return a[i % n_loc] if i // n_loc \
+                == policy.index(policy.model_axis) else None
+        return tree_map(pick, blocks)
+    return view
+
+
+def check_policy(cfg: ModelConfig, policy, entry: str):
+    """A hybrid model, and training, take a policy over one rank only for
+    now (ROADMAP.md Queue A item 11b)."""
+    if cfg.family == "hybrid" or entry == "loss_fn":
+        require_one_rank(policy, f"{cfg.name}: {entry}")
+
+
+def _inputs_to_embed(params, cfg, batch, policy=None):
     """A VLM config's ``batch["embeddings"]`` (B, S, D) where given, else
     the embedded ``batch["tokens"]``."""
     if cfg.input_mode == "embeddings" and "embeddings" in batch:
         return batch["embeddings"]
-    return embed_tokens(params["embed"], cfg, batch["tokens"])
+    return embed_tokens(params["embed"], cfg, batch["tokens"], policy)
 
 
 def loss_fn(params, cfg: ModelConfig, batch, *, placement=None,
-            aux_weight: float = 0.01, ragged: bool = True):
+            policy=None, aux_weight: float = 0.01, ragged: bool = True):
     """batch: {tokens (B, S) or, for a VLM config, embeddings (B, S, D);
     labels (B, S); mask (B, S) optional} -> (loss, {"ce", "aux"}): the
     token cross-entropy plus ``aux_weight`` times the mean router aux loss
     of the MoE layers (0 without experts). Positions run 0..S-1; ``ragged``
-    picks the MoE dispatch, as in the other entry points."""
+    picks the MoE dispatch, as in the other entry points. ``policy``: one
+    rank only (training under a policy over several is ROADMAP item
+    11b)."""
+    check_policy(cfg, policy, "loss_fn")
     x = _inputs_to_embed(params, cfg, batch)
     B, S = x.shape[:2]
     dev = x.device
@@ -808,14 +1012,22 @@ def decode_step_paged(params, cfg: ModelConfig, tokens, pages, lengths, *,
     return lm_logits(params["embed"], cfg, x[:, 0]), pages, stats
 
 
+# Under a policy (``distributed/sharding.py``) the dense-cache entry points
+# run SPMD on every rank of the policy's mesh: each rank passes its rows of
+# the batch (the batch cut over ``policy.batch_axes``, ``batch_specs``), its
+# shard of the params (``shard_params`` of ``make_param_specs``) and of the
+# cache (``cache_specs_tree``), and gets back its rows' logits over the
+# whole vocabulary, its cache shard written in place, and the statistics of
+# the global batch. A policy over one rank changes no bit.
 def prefill(params, cfg: ModelConfig, batch, cache, *, placement=None,
-            source_ids=None, n_sources: int = 0, collect_stats: bool = True,
-            ragged: bool = True):
+            source_ids=None, n_sources: int = 0, policy=None,
+            collect_stats: bool = True, ragged: bool = True):
     """batch: {tokens (B, S) or, for a VLM config, embeddings (B, S, D);
     lengths (B,) optional} -> (logits at each row's last real token (B, V),
     cache, stats). Positions run 0..S-1; the cache (from
     :func:`init_cache`) is written in place."""
-    x = _inputs_to_embed(params, cfg, batch)
+    check_policy(cfg, policy, "prefill")
+    x = _inputs_to_embed(params, cfg, batch, policy)
     B, S = x.shape[:2]
     dev = x.device
     positions = torch.arange(S, dtype=torch.int32, device=dev)[None] \
@@ -824,7 +1036,7 @@ def prefill(params, cfg: ModelConfig, batch, cache, *, placement=None,
         placement = identity_placement(cfg, dev)
     x, cache, stats = _stack_forward(
         params, cfg, x, positions, cache, "prefill", placement, source_ids,
-        n_sources, collect_stats, ragged=ragged)
+        n_sources, collect_stats, ragged=ragged, policy=policy)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     lengths = batch.get("lengths")
     if lengths is None:
@@ -832,21 +1044,23 @@ def prefill(params, cfg: ModelConfig, batch, cache, *, placement=None,
     else:
         last = x[torch.arange(B, device=dev),
                  torch.clamp(lengths.long() - 1, 0, S - 1)]
-    return lm_logits(params["embed"], cfg, last), cache, stats
+    return lm_logits(params["embed"], cfg, last, policy), cache, stats
 
 
 def decode_step(params, cfg: ModelConfig, tokens, cache, lengths, *,
                 placement=None, source_ids=None, n_sources: int = 0,
-                collect_stats: bool = True, ragged: bool = True):
+                policy=None, collect_stats: bool = True,
+                ragged: bool = True):
     """tokens (B,) int32; lengths (B,) current context length per row (the
     new token is written at position lengths[b]). Every row decodes and
     every row's routing counts in the statistics, as in the reference."""
-    x = embed_tokens(params["embed"], cfg, tokens[:, None])   # (B, 1, D)
+    check_policy(cfg, policy, "decode_step")
+    x = embed_tokens(params["embed"], cfg, tokens[:, None], policy)
     positions = lengths.to(torch.int32)[:, None]
     if placement is None:
         placement = identity_placement(cfg, x.device)
     x, cache, stats = _stack_forward(
         params, cfg, x, positions, cache, "decode", placement, source_ids,
-        n_sources, collect_stats, ragged=ragged)
+        n_sources, collect_stats, ragged=ragged, policy=policy)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return lm_logits(params["embed"], cfg, x[:, 0]), cache, stats
+    return lm_logits(params["embed"], cfg, x[:, 0], policy), cache, stats

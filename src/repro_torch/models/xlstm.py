@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import require_one_rank
 from repro_torch.models.layers import (cross_entropy, embed_tokens,
                                        init_embed, lm_logits, rms_norm)
 from repro_torch.models.ssm import (init_mlstm, init_slstm, mlstm_block,
@@ -82,10 +83,11 @@ def _forward(params, cfg, x, states):
 
 
 def loss_fn(params, cfg: ModelConfig, batch, *, placement=None,
-            aux_weight: float = 0.0, ragged: bool = True):
+            policy=None, aux_weight: float = 0.0, ragged: bool = True):
     """batch: {tokens (B, S), labels (B, S), mask optional} -> (loss,
     {"ce", "aux"}): the token cross-entropy; no aux loss (no experts). The
     routing keywords are accepted and unused."""
+    require_one_rank(policy, f"{cfg.name}: loss_fn")
     x = embed_tokens(params["embed"], cfg, batch["tokens"])
     x, _ = _forward(params, cfg, x, None)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -96,11 +98,12 @@ def loss_fn(params, cfg: ModelConfig, batch, *, placement=None,
 
 
 def prefill(params, cfg: ModelConfig, batch, cache, *, placement=None,
-            source_ids=None, n_sources: int = 0, collect_stats: bool = True,
-            ragged: bool = True):
+            source_ids=None, n_sources: int = 0, policy=None,
+            collect_stats: bool = True, ragged: bool = True):
     """batch: {tokens (B, S), lengths (B,) optional} -> (logits at each
     row's last real token (B, V), the new states, None). The routing
     keywords are accepted and unused: the model has no experts."""
+    require_one_rank(policy, f"{cfg.name}: prefill")
     x = embed_tokens(params["embed"], cfg, batch["tokens"])
     B, S = x.shape[:2]
     x, states = _forward(params, cfg, x, cache)
@@ -116,9 +119,10 @@ def prefill(params, cfg: ModelConfig, batch, cache, *, placement=None,
 
 def decode_step(params, cfg: ModelConfig, tokens, cache, lengths, *,
                 placement=None, source_ids=None, n_sources: int = 0,
-                collect_stats: bool = True, ragged: bool = True):
+                policy=None, collect_stats: bool = True, ragged: bool = True):
     """tokens (B,) -> (logits (B, V), the new states, None); ``lengths`` is
     accepted and unused (a recurrent state has no positions)."""
+    require_one_rank(policy, f"{cfg.name}: decode_step")
     x = embed_tokens(params["embed"], cfg, tokens[:, None])
     x, states = _forward(params, cfg, x, cache)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)

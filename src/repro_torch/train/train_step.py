@@ -6,8 +6,10 @@ the step differentiates with respect to ``detach().requires_grad_()``
 views of the param leaves (``torch.autograd.grad``), so
 ``TrainState.params`` never require grad and the serving engines, which
 write params in place when experts migrate, can take trained params as
-they are. The reference's sharding ``policy`` waits for the port's
-multi-device work (ROADMAP.md Queue A item 11).
+they are. The reference's sharding ``policy`` (``make_train_step(policy=)``,
+FSDP) waits for ROADMAP.md Queue A item 11b; the port's policy itself
+(``distributed/sharding.py``) and its serving entry points came with item
+11a.
 """
 from __future__ import annotations
 

@@ -407,6 +407,81 @@ def test_flash_decode_window_softcap_int8(cuda, route, B, Hq, Hkv, hd, L,
         assert float((wide[0].float() - ref[0].float()).abs().max()) > 0.05
 
 
+# (B, Hq, Hkv, hd, L, window, softcap, int8 cache)
+SPLIT_TERMS = [(4, 32, 4, 128, 1024, 0, 0.0, False),    # qwen3-moe's heads
+               (4, 8, 4, 256, 1024, 200, 50.0, False),  # gemma2's terms
+               (4, 8, 2, 128, 512, 200, 30.0, False),
+               (4, 16, 4, 128, 512, 0, 0.0, True)]      # int8
+
+
+@pytest.mark.parametrize("n_split", [2, 4])
+@pytest.mark.parametrize("route", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Hq,Hkv,hd,L,window,cap,int8", SPLIT_TERMS)
+def test_flash_decode_split_k_partials(cuda, route, B, Hq, Hkv, hd, L,
+                                       window, cap, int8, n_split):
+    """Split-K shards: each call on a slice ``cache[:, l0:l1]`` of the ring
+    (read in place) returns its f32 output and log-sum-exp, held to
+    ``flash_decode_plain(return_lse=True)`` on the same slice; row 3 has no
+    valid slot in any shard and row 1 none in the last (lse -inf, output
+    exact zeros). The shards recombined (``combine_partials``) give the
+    unsplit call's output within the bar of its type (int8: bf16's)."""
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_plain)
+    from repro_torch.kernels.kv_pack import pack_kv_plain
+    from repro_torch.models.attention import ring_positions
+    from repro_torch.models.transformer import combine_partials
+    dtype = torch.float32 if route == "float32" else torch.bfloat16
+    g = torch.Generator(device=cuda).manual_seed(hd + L + n_split)
+    q = torch.randn(B, Hq, hd, generator=g, device=cuda).to(dtype)
+    kc = torch.randn(B, L, Hkv, hd, generator=g, device=cuda) * 4
+    vc = torch.randn(B, L, Hkv, hd, generator=g, device=cuda)
+    ks = vs = None
+    if int8:
+        kc, ks = pack_kv_plain(kc)
+        vc, vs = pack_kv_plain(vc)
+    else:
+        kc, vc = kc.to(dtype), vc.to(dtype)
+    write = torch.tensor([3 * L + 2, L // 2 - 1, L - 1, 0], device=cuda)
+    k_pos = ring_positions(write, L)
+    q_pos = write.to(torch.int32).clone()
+    k_pos[3] = -1                         # no valid slot at all
+    terms = dict(window=window, softcap=cap)
+    Ls = L // n_split
+    outs, lses = [], []
+    for i in range(n_split):
+        sl = slice(i * Ls, (i + 1) * Ls)
+        sc = {} if ks is None else dict(k_scale=ks[:, sl], v_scale=vs[:, sl])
+        kp = k_pos[:, sl].contiguous()
+        before = (flash_decode.launches, flash_decode.tc_launches)
+        o, lse = flash_decode(q, kc[:, sl], vc[:, sl], kp, q_pos,
+                              return_lse=True, **terms, **sc)
+        assert (flash_decode.launches, flash_decode.tc_launches) == (
+            before[0] + 1, before[1] + _decode_tc(dtype, hd, Hq // Hkv))
+        ro, rl = flash_decode_plain(q, kc[:, sl].contiguous(),
+                                    vc[:, sl].contiguous(), kp, q_pos,
+                                    return_lse=True, **terms,
+                                    **{k: v.contiguous() for k, v in
+                                       sc.items()})
+        torch.cuda.synchronize()
+        assert o.dtype == torch.float32 and lse.dtype == torch.float32
+        assert torch.isneginf(lse[3]).all() and torch.equal(
+            o[3], torch.zeros_like(o[3]))
+        assert torch.equal(torch.isneginf(lse), torch.isneginf(rl))
+        tol = TOL[torch.bfloat16 if int8 else dtype]
+        torch.testing.assert_close(o, ro, rtol=tol, atol=tol)
+        fin = ~torch.isneginf(rl)
+        torch.testing.assert_close(lse[fin], rl[fin], rtol=tol, atol=tol)
+        outs.append(o)
+        lses.append(lse)
+    assert torch.isneginf(lses[-1][1]).all()   # row 1 ends before L // 2
+    whole = flash_decode(q, kc, vc, k_pos, q_pos, k_scale=ks, v_scale=vs,
+                         **terms)
+    got = combine_partials(torch.stack(outs), torch.stack(lses))
+    tol = TOL[torch.bfloat16 if int8 else dtype]
+    torch.testing.assert_close(got.to(dtype).float(), whole.float(),
+                               rtol=tol, atol=tol)
+
+
 def _paged_inputs(cuda, B, ctx, NB, int8_pages, seed, dtype=torch.bfloat16,
                   Hq=32, Hkv=4, hd=128, ps=16):
     """q in ``dtype`` and a pool with a distinct page for every block of

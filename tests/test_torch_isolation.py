@@ -28,6 +28,7 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "import repro_torch.serving.real_cluster\n"
         "import repro_torch.kernels.kv_pack\n"
         "import repro_torch.kernels.flash_decode, repro_torch.models.api\n"
+        "import repro_torch.distributed.sharding, repro_torch.launch.mesh\n"
         "import repro_torch.serving.real_engine\n"
         "import repro_torch.serving.engine, repro_torch.serving.routing_sim\n"
         "import repro_torch.serving.simulator, repro_torch.core.minlp\n"
