@@ -166,9 +166,37 @@
    config on the two ranks meets the CPU within 1e-5. The kernel phase
    holds ``flash_decode``'s split-K shards (1 of 4 and 1 of 8 of a
    32768-slot ring, f32 output and log-sum-exp) beside SDPA on the shard;
-14. prints a ``kernels`` JSON line (all seven kernels; the train and
-   sharded phases' launches under ``launches_by_path``), then as its last
-   line ``{"ok": true, "device": {...}}``.
+14. the ``sharded_train`` phase (ROADMAP Queue A item 11b, steps 1 and
+   2), the earlier phases' weights freed first: qwen3-moe-30b-a3b at full
+   width and 4 layers trained 2 ragged steps on a batch of 4 x
+   512 tokens under ``make_policy(..., "train")`` on a (1, 1) NCCL mesh,
+   the same bits as without the policy (losses, params, moments) with the
+   train phase's launch counts; then the script starts itself twice, two
+   ranks sharing the card over gloo, as a (2, 1) mesh (FSDP and the batch
+   over ``data``, each expert's FFN dimension over ``data``) and then as a
+   (1, 2) mesh (TP and EP over ``model``): on each, every rank holds
+   exactly its spec's share of params and bf16 moments, 2 ragged steps of
+   the model at 2 layers meet the world-1 losses and gradient norms at
+   the bf16 bar with the expert GEMMs on the tensor cores, each step's wall and its collectives'
+   share are printed, and the float32 twins (qwen3-moe's loss, grads and 2
+   train steps; xlstm-125m's and seamless-m4t-large-v2's prefill and
+   decode) meet the CPU within 1e-5; on the (1, 2) mesh hymba-1.5b at full
+   width and 16 of its 32 layers (one period) under a serve policy (a
+   prefill of 4 x 1024 tokens, 8 decode
+   steps): each layer's attention and mamba branch, fed the world-1 run's
+   inputs, meet its outputs at the bf16 bar, each rank's mamba state holds
+   its channels, ``flash_decode`` runs on the tensor cores, and a decode
+   step's wall and collectives' share are printed. In each mesh's second
+   train step every rank holds the first ragged GMM launch of each weight
+   shape, forward and backward, against the plain version on its inputs,
+   and writes its launch counts for the parent to report. The kernel
+   phase holds the ragged GMM at the shapes those ranks launch (the
+   parent checks that it held every one) and the expert GEMMs at a rank's
+   EP shard of a (2, 2) mesh (64 of 128 experts, F 384 of 768);
+15. prints a ``kernels`` JSON line (all seven kernels; the train,
+   sharded and sharded_train phases' launches, and the sharded_train
+   ranks' summed, under ``launches_by_path``), then as its last line
+   ``{"ok": true, "device": {...}}``.
 
 Adopting a placement moves the experts' weights in place; each serve
 leaves the caller's weights as they were.
@@ -176,8 +204,9 @@ leaves the caller's weights as they were.
 The kernel launch counters are set to 0 just before each serve of steps 4,
 6, 7, 9, 10 and 11, of each entry-point run of steps 10 and 11, of each
 scenario slice of step 8, of each full-width training run of step 12 and
-of the policy's run and each split decode step of step 13, and read just
-after;
+of the policy's run and each split decode step of step 13, of each
+world-1 train run of step 14 and of the two ranks' train steps and hymba
+decode steps there, and read just after;
 each serve fails if a kernel of its path was not launched, or if a bf16
 launch of an expert GEMM or of a decode kernel at full width took the CUDA
 cores instead of the tensor cores (at hd 256, which
@@ -223,6 +252,11 @@ def parse_args():
     ap.add_argument("--sharded-rank", type=int, default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--sharded-job", default=None, help=argparse.SUPPRESS)
+    # one rank of the sharded_train phase's two-rank worlds
+    ap.add_argument("--sharded-train-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--sharded-train-job", default=None,
+                    help=argparse.SUPPRESS)
     return ap.parse_args()
 
 
@@ -448,7 +482,7 @@ def dispatch_layout(T, K, E, D, dtype, g):
     return ragged_dispatch(x, ids, E, row_block=nb)
 
 
-def check_gmm(timer, dtype, T, D, F, which, K=8, dx=False):
+def check_gmm(timer, dtype, T, D, F, which, K=8, dx=False, E=128):
     """qwen3's top-8 of 128 experts (2048 <-> 768), or llama4's top-1 of
     128 (5120 <-> 8192: a 10 GiB bf16 weight stack). The weights are drawn
     one expert at a time, so the draw's f32 buffer is one expert's.
@@ -460,7 +494,6 @@ def check_gmm(timer, dtype, T, D, F, which, K=8, dx=False):
     from repro_torch.kernels.moe_gmm import (moe_gmm_ragged,
                                              moe_gmm_ragged_plain)
     g = torch.Generator(device="cuda").manual_seed(2)
-    E = 128
     disp = dispatch_layout(T, K, E, D, dtype, g)
     w = torch.empty(E, D, F, dtype=dtype, device="cuda")
     for e in range(E):
@@ -936,6 +969,7 @@ def kernel_phase():
     other_families_kernel_rows(timer, record)
     train_kernel_rows(timer, record)
     sharded_kernel_rows(timer, record)
+    sharded_train_kernel_rows(timer, record)
     return results
 
 
@@ -3139,7 +3173,8 @@ def tree_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in tree_flatten(tree))
 
 
-def train_steps(label, step_fn, box, batch, n, counters, expected):
+def train_steps(label, step_fn, box, batch, n, counters, expected,
+                phase="train"):
     """``n`` steps of ``step_fn`` on ``batch`` from the state in the list
     ``box``, which this empties (a step leaves the state it is given as it
     is, so a reference the caller kept would hold a second train state on
@@ -3158,19 +3193,19 @@ def train_steps(label, step_fn, box, batch, n, counters, expected):
         loss = float(metrics["loss"])           # waits for the step
         wall = time.perf_counter() - t0
         losses.append(loss)
-        log(f"{TR}: {label} step {i}: loss {loss:.4f} (ce "
+        log(f"{phase}: {label} step {i}: loss {loss:.4f} (ce "
             f"{float(metrics['ce']):.4f}, aux {float(metrics['aux']):.4f}), "
             f"{wall:.2f} s wall, peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         if not np.isfinite(loss):
-            raise AssertionError(f"{TR}: {label} step {i}: loss {loss}")
+            raise AssertionError(f"{phase}: {label} step {i}: loss {loss}")
     launches, tc = read_counts(counters)
     for name in counters:
         if launches[name] != expected.get(name, 0):
-            raise AssertionError(f"{TR}: {label}: {name} launched "
+            raise AssertionError(f"{phase}: {label}: {name} launched "
                                  f"{launches[name]} times in {n} steps, "
                                  f"expected {expected.get(name, 0)}")
-    log(f"{TR}: {label}: launches "
+    log(f"{phase}: {label}: launches "
         f"{ {k: v for k, v in launches.items() if v} } "
         f"({ {k: v for k, v in tc.items() if launches[k]} } on the tensor "
         f"cores), no decode kernel")
@@ -4060,10 +4095,818 @@ def sharded_rank(args) -> int:
     return 0
 
 
+# ------------------------------------------------------------ sharded_train
+STR = "sharded_train"
+STR_DIR = os.path.join(HERE, "build", "sharded_train")     # gitignored
+# the train cell (4 rows of 512 tokens), the world-1 run's and the two
+# ranks' depths (cut so that the whole smoke stays near 850 s), the
+# float32 twins' lr (at 1e-3 an AdamW step moves an element whose gradient
+# sits within float noise of 0 by a noise-set share of lr, above 1e-5)
+STR_B, STR_S, STR_W1_LAYERS, STR_LAYERS, STR_TWIN_LR = 4, 512, 4, 2, 1e-4
+# hymba's decode cell on the two ranks: B rows of P prefilled tokens over
+# L-slot rings, STEPS decode steps, at one period of its layers (15 local,
+# 1 global) of 32
+HY_B, HY_P, HY_L, HY_STEPS, HY_LAYERS = 4, 1024, 2048, 8, 16
+# the ragged GMM's launches on a rank of each two-rank mesh of the train
+# cell, as (mesh, experts, tokens, F): on (2, 1) every expert with its FFN
+# dimension cut over ``data`` (F 384), the batch gathered over ``data``
+# (2048 tokens, top 8: 16384 slots); on (1, 2) half the experts (EP over
+# ``model``) with F whole, the slots of all 2048 tokens routed to them
+# (about half: 1024 tokens' worth)
+STR_RAGGED = (((2, 1), 128, 2048, 384), ((1, 2), 64, 1024, 768))
+
+
+def _str_ragged_shapes():
+    """The (E, D_in, D_out) weight shapes of those launches: the forward's
+    gate/up (E, 2048, F) and down (E, F, 2048), and the dx products'
+    transposes of the same two."""
+    return {(E, a, b) for _, E, _, F in STR_RAGGED
+            for a, b in ((2048, F), (F, 2048))}
+
+
+def _hymba_cfg():
+    from repro_torch.configs import get_config, reduced
+    return reduced(get_config("hymba-1.5b"), n_layers=HY_LAYERS)
+
+
+def sharded_train_kernel_rows(timer, record):
+    """The ragged GMM at the shapes a rank of each two-rank mesh of the
+    train cell launches (``STR_RAGGED``): the forward's and the dx
+    products' gate/up and down. Then the expert GEMMs at a rank's EP shard
+    of the train cell on a (2, 2) mesh under ``expert_data_shard`` (64 of
+    128 experts, F = 768 cut in two; the CPU tests' layout): the ragged
+    GMM's two dx products (the slots routed to the rank's experts: as many
+    a expert as the whole cell's) and the padded GMM's forward, dx and dw
+    at C = 160."""
+    dt = "bfloat16"
+    for mesh, E, T, F in STR_RAGGED:
+        for D, Fo, proj in ((2048, F, "gate/up"), (F, 2048, "down")):
+            for dx in (False, True):
+                kind = "dx" if dx else "forward"
+                record("moe_gmm_ragged", dt + ("/dx" if dx else ""),
+                       check_gmm(timer, torch.bfloat16, T, D, Fo,
+                                 f"a {mesh} rank's {kind} {proj}"
+                                 + (" (dy rounded to bf16)" if dx else ""),
+                                 dx=dx, E=E))
+        torch.cuda.empty_cache()
+    for D, F, proj in ((2048, 384, "gate/up"), (384, 2048, "down")):
+        record("moe_gmm_ragged", dt + "/dx",
+               check_gmm(timer, torch.bfloat16, 2048, D, F,
+                         f"EP shard dx {proj} (dy rounded to bf16)", K=4,
+                         dx=True, E=64))
+    for E, C, D, F, which in (
+            (64, 160, 2048, 384, "EP shard forward gate/up"),
+            (64, 160, 384, 2048, "EP shard dx gate/up (dy @ wT)"),
+            (64, 2048, 160, 384, "EP shard dw gate/up (xT @ dy)")):
+        record("moe_gmm", dt,
+               check_padded_gmm(timer, torch.bfloat16, E, C, D, F, which))
+    torch.cuda.empty_cache()
+
+
+def _train_policy(cfg, mesh, B=STR_B, S=STR_S):
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding as sh
+    return sh.make_policy(cfg, ShapeConfig(f"train_{B}x{S}", S, B, "train"),
+                          mesh, "train")
+
+
+def _train_twin_cpu(seed):
+    """The float32 twin of qwen3-moe (the smoke config at 2 layers) trained
+    on the CPU, world 1: params from ``seed``, one batch of 4 x 16 tokens;
+    the loss and grads at the init, then 2 steps (fp32 moments, lr
+    ``STR_TWIN_LR``) and their losses and params."""
+    from repro_torch.bridge import tree_flatten, tree_unflatten
+    from repro_torch.configs import get_smoke_config, reduced
+    from repro_torch.launch.train import make_batch, step_generator
+    from repro_torch.models import build_model
+    from repro_torch.train import (AdamWConfig, make_train_state,
+                                   make_train_step)
+    cfg = reduced(get_smoke_config("qwen3-moe-30b-a3b"), n_layers=2,
+                  dtype="float32")
+    fns = build_model(cfg)
+    params = fns.init(torch.Generator().manual_seed(seed), device="cpu")
+    batch = make_batch(cfg, 4, 16, step_generator(seed, 1), "cpu")
+    live = [p.detach().requires_grad_() for p in tree_flatten(params)]
+    loss, _ = fns.loss(tree_unflatten(params, live), batch)
+    grads = torch.autograd.grad(loss, live)
+    opt = AdamWConfig(lr=STR_TWIN_LR, moment_dtype="float32")
+    state = make_train_state(params, opt)
+    step = make_train_step(lambda p, b: fns.loss(p, b), opt)
+    losses = []
+    for _ in range(2):
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+    return {"params": params, "batch": batch, "loss": loss.detach(),
+            "grads": tree_unflatten(params, list(grads)),
+            "losses": losses, "params2": state.params}
+
+
+def _serve_twins_cpu(seed):
+    """The float32 twins of xlstm-125m and seamless-m4t-large-v2 (smoke
+    configs) served on the CPU, world 1: prefill of 4 x 20 tokens (24
+    stand-in frames for seamless) into 32-slot caches, 4 greedy decode
+    steps; the logits the ranks are held to."""
+    from repro_torch.configs import get_smoke_config, reduced
+    from repro_torch.models import build_model
+    out = {}
+    for arch in ("xlstm-125m", "seamless-m4t-large-v2"):
+        cfg = reduced(get_smoke_config(arch), dtype="float32")
+        fns = build_model(cfg)
+        g = torch.Generator().manual_seed(seed + 3)
+        params = fns.init(g, device="cpu")
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 20),
+                                         generator=g, dtype=torch.int32),
+                 "lengths": torch.tensor([20, 17, 20, 18],
+                                         dtype=torch.int32)}
+        dkw = {}
+        if cfg.family == "encdec":
+            batch["embeddings"] = torch.randn(4, 24, cfg.d_model,
+                                              generator=g)
+            dkw["enc_lengths"] = torch.tensor([24, 21, 24, 17],
+                                              dtype=torch.int32)
+        lg, cache, _ = fns.prefill(params, batch,
+                                   fns.init_cache(4, 32, device="cpu"))
+        logits, toks = [lg], []
+        for i in range(4):
+            toks.append(lg.argmax(-1).to(torch.int32))
+            lg, cache, _ = fns.decode(params, toks[-1], cache,
+                                      batch["lengths"] + i, **dkw)
+            logits.append(lg)
+        out[arch] = {"params": params, "batch": batch, "dkw": dkw,
+                     "toks": toks, "logits": logits}
+    return out
+
+
+def _record_hybrid(params, cfg, fns, seed):
+    """hymba's world-1 run the two ranks are held to, sublayer by
+    sublayer: a prefill of HY_B x HY_P tokens into HY_L-slot rings, then
+    HY_STEPS greedy decode steps, recording each layer's attention (input,
+    positions, output) and mamba branch (normed input, output) on the
+    host, the tokens fed, and the final cache's mamba state."""
+    from repro_torch.models import transformer as tfm
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 23)
+    tokens = torch.randint(0, cfg.vocab_size, (HY_B, HY_P), generator=g,
+                           device=dev, dtype=torch.int32)
+    lengths = torch.full((HY_B,), HY_P, dtype=torch.int32, device=dev)
+    rec = {"attn": [], "mamba": [], "toks": []}
+    attn0, mamba0 = tfm.attention_block, tfm.mamba_block
+
+    def attention(lp, cfg, desc, x, positions, cache, mode, paged=None,
+                  policy=None):
+        out, c = attn0(lp, cfg, desc, x, positions, cache, mode, paged,
+                       policy)
+        rec["attn"][-1].append((x.cpu(), positions.cpu(), out.cpu()))
+        return out, c
+
+    def mamba(params, xn, *a, **kw):
+        out, st = mamba0(params, xn, *a, **kw)
+        rec["mamba"][-1].append((xn.cpu(), out.cpu()))
+        return out, st
+
+    cache = fns.init_cache(HY_B, HY_L, device=dev)
+    tfm.attention_block, tfm.mamba_block = attention, mamba
+    try:
+        for step in range(HY_STEPS + 1):
+            rec["attn"].append([])
+            rec["mamba"].append([])
+            if step == 0:
+                lg, cache, _ = fns.prefill(params, {"tokens": tokens,
+                                                    "lengths": lengths},
+                                           cache)
+            else:
+                lg, cache, _ = fns.decode(params, rec["toks"][-1].to(dev),
+                                          cache, lengths + step - 1)
+            rec["toks"].append(lg.argmax(-1).to(torch.int32).cpu())
+    finally:
+        tfm.attention_block, tfm.mamba_block = attn0, mamba0
+    rec["next"] = rec["toks"].pop()
+    rec["lengths"] = lengths.cpu()
+    rec["state"] = {name: {k: c[k].cpu() for k in ("mamba_h", "mamba_conv")}
+                    for name, c in cache.items()}
+    return rec
+
+
+def sharded_train_phase(args, counters):
+    """Training under the sharding policy on the card (ROADMAP Queue A
+    item 11b, step 2), and the hybrid, xLSTM and encoder-decoder families
+    across ranks (step 1). The earlier phases' weights are freed first.
+
+    1. World size 1: qwen3-moe-30b-a3b at full width and 4 layers
+       (``STR_W1_LAYERS``), bf16, on a (1, 1) data x model mesh over NCCL:
+       two ragged
+       train steps (lr 1e-3, bf16 moments) on a batch of 4 x 512 tokens
+       under ``make_policy(cfg, ShapeConfig(..., 512, 4, "train"), mesh,
+       "train")`` give the same bits as without it (losses, params and
+       moments; the first run's state is held on the host meanwhile), with
+       the launch counts of the train phase (9 ragged GMMs a MoE layer a
+       step), all on the tensor cores.
+    2. The world-1 runs the ranks are held to: two ragged steps of the same
+       model at 2 layers; hymba-1.5b at full width and one period of its
+       layers (16 of 32: 15 local, 1 global) prefilled
+       with 4 x 1024 tokens and decoded 8 steps, sublayer by sublayer; and
+       the float32 twins on the CPU (qwen3-moe's train step, xlstm's and
+       seamless's entry points).
+    3. The script starts itself twice, two ranks sharing the card over
+       gloo, first as a (2, 1) mesh (FSDP and the batch over ``data``,
+       each expert's FFN dimension over ``data``), then as a (1, 2) mesh
+       (TP and EP over ``model``): see :func:`sharded_train_rank`.
+    Returns the launch counts of step 1's run under the policy (and those
+    on the tensor cores), then those of step 3's ranks, both meshes and
+    both ranks summed, read from the files the ranks write."""
+    import torch.distributed as dist
+    from repro_torch.bridge import tree_flatten
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.launch.train import make_batch, step_generator
+    from repro_torch.models import build_model
+    from repro_torch.train import AdamWConfig, make_train_state, \
+        make_train_step
+    os.makedirs(STR_DIR, exist_ok=True)
+    cfg = _sharded_cfg(STR_W1_LAYERS)
+    L = cfg.n_layers
+    mesh = make_device_mesh((1, 1), ("data", "model"), "cuda",
+                            init_method=f"file://{STR_DIR}/store_w1_"
+                                        f"{os.getpid()}", rank=0,
+                            world_size=1)
+    pol = _train_policy(cfg, mesh)
+    log(f"{STR}: world 1: a (1, 1) data x model mesh over {mesh.backend}, "
+        f"policy batch_axes {pol.batch_axes}, fsdp_axes {pol.fsdp_axes}, "
+        f"expert_data_shard {pol.expert_data_shard}")
+    fns = build_model(cfg)
+    batch = make_batch(cfg, STR_B, STR_S, step_generator(args.seed, 0),
+                       "cuda")
+    ocfg = AdamWConfig(lr=1e-3)
+    need = {"moe_gmm_ragged": 2 * L * 9}
+    first = None
+    for label, policy in (("without the policy", None),
+                          ("under the policy", pol)):
+        box = [make_train_state(init_family(cfg, args.seed,
+                                            "qwen3-moe-30b-a3b", STR), ocfg)]
+        step = make_train_step(
+            lambda p, b, policy=policy: fns.loss(p, b, policy=policy), ocfg,
+            policy=policy)
+        state, losses, launches, tc = train_steps(
+            f"world 1, ragged, {label}", step, box, batch, 2, counters, need,
+            phase=STR)
+        check_routes(STR, launches, tc, ("moe_gmm_ragged",))
+        leaves = tree_flatten(state)
+        if first is None:
+            t0 = time.perf_counter()
+            first = (losses, [t.cpu() for t in leaves])
+            log(f"{STR}: world 1: the state after 2 steps without the "
+                f"policy ({sum(t.numel() * t.element_size() for t in leaves) / 2**30:.2f}"
+                f" GiB: params and bf16 moments) copied to the host in "
+                f"{time.perf_counter() - t0:.1f} s")
+        else:
+            same = losses == first[0] and all(
+                torch.equal(t, h.to(t.device))
+                for t, h in zip(leaves, first[1]))
+            if not same:
+                raise AssertionError(f"{STR}: world 1: the policy changed "
+                                     f"bits: losses {losses} against "
+                                     f"{first[0]}")
+            w1 = (launches, tc)
+            log(f"{STR}: world 1: 2 train steps under the policy: losses, "
+                f"params and moments ({len(leaves)} leaves) the same bits "
+                f"as without it; launches {launches['moe_gmm_ragged']} "
+                f"ragged GMMs ({2 * L * 9} expected), "
+                f"{tc['moe_gmm_ragged']} on the tensor cores ({_card()})")
+        del state, box, leaves, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    del first
+    dist.destroy_process_group()
+
+    # 2. the world-1 runs the ranks are held to
+    cfg2 = _sharded_cfg(STR_LAYERS)
+    fns2 = build_model(cfg2)
+    box = [make_train_state(init_family(cfg2, args.seed,
+                                        "qwen3-moe-30b-a3b", STR), ocfg)]
+    ref_norms = []
+    with _recording_norm(ref_norms):
+        _, ref_losses, _, _ = train_steps(
+            f"world 1 at {STR_LAYERS} layers, ragged", make_train_step(
+                lambda p, b: fns2.loss(p, b), ocfg), box, batch, 2,
+            counters, {"moe_gmm_ragged": 2 * STR_LAYERS * 9}, phase=STR)
+    log(f"{STR}: world 1 at {STR_LAYERS} layers: the gradient's global "
+        f"norm {', '.join(f'{x:.5f}' for x in ref_norms)} (steps 0, 1)")
+    box.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    hcfg = _hymba_cfg()
+    hfns = build_model(hcfg)
+    hparams = init_family(hcfg, args.seed, "hymba-1.5b", STR)
+    t0 = time.perf_counter()
+    rec = _record_hybrid(hparams, hcfg, hfns, args.seed)
+    torch.cuda.synchronize()
+    log(f"{STR}: hymba-1.5b world 1: prefill of {HY_B} x {HY_P} tokens into "
+        f"{HY_L}-slot rings and {HY_STEPS} decode steps, every layer's "
+        f"attention and mamba recorded, in {time.perf_counter() - t0:.1f} s")
+    del hparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.save(rec, os.path.join(STR_DIR, "hymba.pt"))
+    del rec
+    torch.save({"losses": ref_losses, "norms": ref_norms,
+                "twin": _train_twin_cpu(args.seed),
+                "serve": _serve_twins_cpu(args.seed)},
+               os.path.join(STR_DIR, "reference.pt"))
+    job = {"src": os.path.join(HERE, "src"), "seed": args.seed,
+           "meshes": [[2, 1], [1, 2]], "dir": STR_DIR,
+           "store": os.path.join(STR_DIR, f"store_w2_{os.getpid()}")}
+    path = os.path.join(STR_DIR, "job.json")
+    with open(path, "w") as f:
+        json.dump(job, f)
+    for name in os.listdir(STR_DIR):       # an earlier run's counts
+        if name.startswith("counts_"):
+            os.remove(os.path.join(STR_DIR, name))
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--sharded-train-rank", str(r),
+                               "--sharded-train-job", path], env=env,
+                              cwd=HERE, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    logs = []
+    for p in procs:
+        try:
+            logs.append(p.communicate(timeout=700)[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            logs.append(p.communicate()[0] + "\n(killed at the timeout)")
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        for line in text.splitlines():
+            if "USDT" not in line and "Warning" not in line:
+                log(f"{STR}: rank {r}: {line}")
+        if p.returncode:
+            raise AssertionError(f"{STR}: rank {r} exited {p.returncode}")
+    log(f"{STR}: two ranks on one card, a (2, 1) then a (1, 2) mesh: both "
+        f"exited 0 in {time.perf_counter() - t0:.1f} s ({_card()})")
+    ranks, ranks_tc, shapes = {}, {}, set()
+    for mesh_shape in job["meshes"]:
+        tag = "x".join(map(str, mesh_shape))
+        for r in range(2):
+            with open(os.path.join(STR_DIR, f"counts_{tag}_{r}.json")) as f:
+                c = json.load(f)
+            for k in ("moe_gmm_ragged", "flash_decode"):
+                ranks[k] = ranks.get(k, 0) + c.get(k, 0)
+                ranks_tc[k] = ranks_tc.get(k, 0) + c.get(k + "_tc", 0)
+            shapes |= {tuple(x) for x in c["shapes"]}
+    missing = shapes - _str_ragged_shapes()
+    log(f"{STR}: the ranks' launches, both meshes: {ranks} ({ranks_tc} on "
+        f"the tensor cores); ragged GMM weight shapes {sorted(shapes)}, "
+        f"each held by a kernel row: {not missing}")
+    if missing:
+        raise AssertionError(f"{STR}: the ranks launched the ragged GMM at "
+                             f"weight shapes {sorted(missing)} that no "
+                             f"kernel row holds")
+    return w1 + (ranks, ranks_tc)
+
+
+def _collective_share(prof, wall):
+    """(seconds in the ``collective:*`` ranges on the host, their count)
+    of a profile; each range also shows as a GPU user annotation, so only
+    the host-side ranges count."""
+    from torch.autograd import DeviceType
+    host = [e for e in prof.events() if e.name.startswith("collective:")
+            and e.device_type == DeviceType.CPU]
+    return sum(e.cpu_time_total for e in host) / 1e6, len(host)
+
+
+@contextlib.contextmanager
+def _recording_norm(norms):
+    """While open, ``train/optimizer``'s ``global_norm`` (which
+    ``apply_updates`` clips by) appends each value it returns to
+    ``norms``: the whole gradient's norm, across the ranks under a
+    policy."""
+    from repro_torch.train import optimizer
+    real = optimizer.global_norm
+
+    def norm(*a, **kw):
+        out = real(*a, **kw)
+        norms.append(float(out))
+        return out
+
+    optimizer.global_norm = norm
+    try:
+        yield norms
+    finally:
+        optimizer.global_norm = real
+
+
+def _holding_ragged(held):
+    """A stand-in for ``kernels/moe_dispatch``'s ``moe_gmm_ragged`` that
+    launches it as before and notes each launch's weight shape in
+    ``held["shapes"]``; while ``held["on"]``, it keeps a copy of the inputs
+    and output of the first launch of each weight shape in the forward and
+    in the backward (the dx product: called from ``_RaggedGMM.backward``),
+    to be held against the plain version after the step
+    (:func:`_hold_ragged`)."""
+    from repro_torch.kernels.moe_gmm import moe_gmm_ragged
+
+    def launch(x, w, te, gs, po, *, n_block):
+        out = moe_gmm_ragged(x, w, te, gs, po, n_block=n_block)
+        held["shapes"].add(tuple(w.shape))
+        key = (tuple(w.shape),
+               sys._getframe(1).f_code.co_name != "backward")
+        if held["on"] and key not in held["kept"]:
+            held["kept"][key] = [t.clone() for t in (x, w, te, gs, po,
+                                                     out)] + [n_block]
+        return out
+
+    return launch
+
+
+def _hold_ragged(held):
+    """Each kept launch's output against ``moe_gmm_ragged_plain`` on the
+    same inputs: [(weight shape, forward or backward, rows, max_abs_err,
+    max_abs_err over the plain output's largest magnitude)], failing where
+    the second passes the bf16 tolerance (a dx product's dy is a gradient,
+    some 1e-6 in size, so its absolute error says nothing)."""
+    from repro_torch.kernels.moe_gmm import moe_gmm_ragged_plain
+    out = []
+    for (shape, fwd), (x, w, te, gs, po, y, nb) in held["kept"].items():
+        ref = moe_gmm_ragged_plain(x, w, te, gs, po, n_block=nb)
+        err = max_err(y, ref)
+        top = float(ref.abs().max()) if ref.numel() else 0.0
+        rel = err / top if top else (0.0 if err == 0 else float("inf"))
+        out.append((list(shape), "forward" if fwd else "backward",
+                    int(gs.sum()), err, rel))
+        if not rel <= TOL["bfloat16"]:
+            raise AssertionError(f"ragged GMM at {shape} ({out[-1][1]}): "
+                                 f"max_abs_err {err}, {rel} of the plain "
+                                 f"output's largest magnitude")
+    held["kept"].clear()
+    return out
+
+
+def _rank_train(mesh, job, ref):
+    """Step 3 of :func:`sharded_train_phase` on one rank, the full-width
+    train steps: its spec's share of params and moments, two ragged steps
+    against the world-1 losses and the world-1 gradient's global norm (the
+    clip's) at the bf16 bar, their walls and the collectives' share, the
+    expert GEMMs on the tensor cores, and in the
+    second step the first ragged launch of each weight shape, forward and
+    backward, held against the plain version on its inputs. Returns the
+    ragged launch counts, the weight shapes launched and the held
+    launches."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.bridge import tree_map
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import moe_dispatch
+    from repro_torch.kernels.moe_gmm import moe_gmm_ragged
+    from repro_torch.launch.train import make_batch, step_generator
+    from repro_torch.models import api, build_model
+    from repro_torch.train import AdamWConfig, make_train_state, \
+        make_train_step
+    dev = mesh.device
+    cfg = _sharded_cfg(STR_LAYERS)
+    pol = _train_policy(cfg, mesh)
+    fns = build_model(cfg)
+    full = fns.init(torch.Generator(device=dev).manual_seed(job["seed"]),
+                    device=dev)
+    specs = sh.param_specs(cfg, pol)
+    params = sh.shard_params(full, specs, pol)
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    ocfg = AdamWConfig(lr=1e-3)
+    state = make_train_state(params, ocfg, policy=pol)
+    del params
+    abstract = api.param_specs_abstract(cfg)
+    want = sh.spec_bytes(abstract, specs, pol)
+    want_m = 2 * sh.spec_bytes(tree_map(lambda t: torch.empty(
+        t.shape, dtype=torch.bfloat16, device="meta"), abstract), specs, pol)
+    have, have_m = tree_bytes(state.params), tree_bytes((state.opt.mu,
+                                                         state.opt.nu))
+    blk = state.params["blocks"]["pos0"]
+    log(
+        f"mesh {mesh}, {mesh.backend}: policy batch_axes {pol.batch_axes}, "
+        f"fsdp_axes {pol.fsdp_axes}, expert_data_shard "
+        f"{pol.expert_data_shard}; experts {blk['moe']['w_gate'].shape[1]} "
+        f"of {cfg.moe.n_experts} with F {blk['moe']['w_gate'].shape[-1]} of "
+        f"{cfg.moe.d_expert}, wq {tuple(blk['attn']['wq'].shape[1:])}, "
+        f"embedding {tuple(state.params['embed']['embedding'].shape)}; "
+        f"params {have / 2**30:.4f} GiB = spec share {want / 2**30:.4f} GiB:"
+        f" {have == want}; bf16 moments {have_m / 2**30:.4f} GiB = spec "
+        f"share {want_m / 2**30:.4f} GiB: {have_m == want_m}")
+    if have != want or have_m != want_m:
+        raise AssertionError(f"resident {have} + {have_m} bytes, spec share "
+                             f"{want} + {want_m}")
+    batch = make_batch(cfg, STR_B, STR_S, step_generator(job["seed"], 0),
+                       "cpu")
+    rows = {k: pol.take_block(v, pol.batch_axes, 0).to(dev)
+            for k, v in batch.items()}
+    step = make_train_step(lambda p, b: fns.loss(p, b, policy=pol), ocfg,
+                           policy=pol)
+    held = {"on": False, "shapes": set(), "kept": {}}
+    moe_dispatch.moe_gmm_ragged = _holding_ragged(held)
+    moe_gmm_ragged.launches = moe_gmm_ragged.tc_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    import torch.distributed as dist
+    norms = []
+    for i in range(2):
+        held["on"] = i == 1
+        dist.barrier()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU]) as prof, \
+                _recording_norm(norms):
+            t0 = time.perf_counter()
+            state, m = step(state, rows)
+            loss = float(m["loss"])
+            wall = time.perf_counter() - t0
+        coll, n_coll = _collective_share(prof, wall)
+        # the clip's norm sums every leaf's squares over the ranks: a
+        # missed or doubled sum over a data axis moves it by a factor
+        n_err = abs(norms[i] - ref["norms"][i]) / ref["norms"][i]
+        log(f"step {i}: the gradient's global norm {norms[i]:.5f} against "
+            f"the world-1 run's {ref['norms'][i]:.5f}: relative "
+            f"{n_err:.3g} (bar {TOL['bfloat16']:g})")
+        if not n_err <= TOL["bfloat16"]:
+            raise AssertionError(f"step {i}: global norm {norms[i]}, "
+                                 f"world 1 {ref['norms'][i]}")
+        err = bar_err(torch.tensor(loss), torch.tensor(ref["losses"][i]))
+        log(
+            f"step {i}: loss {loss:.5f} against the world-1 run's "
+            f"{ref['losses'][i]:.5f}: |a - b| / (1 + |b|) {err:.3g} (bar "
+            f"{TOL['bfloat16']:g}); {wall:.2f} s wall (profiled, host "
+            f"ranges only), of it {coll:.2f} s ({100 * coll / wall:.1f}%) in "
+            f"{n_coll} collectives (gloo, through the host); peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+            f"({_card()})")
+        if not (err <= TOL["bfloat16"] and np.isfinite(loss)):
+            raise AssertionError(f"step {i}: loss {loss}, world 1 "
+                                 f"{ref['losses'][i]}")
+    moe_dispatch.moe_gmm_ragged = moe_gmm_ragged
+    n, tc = moe_gmm_ragged.launches, moe_gmm_ragged.tc_launches
+    log(f"ragged GMM launches in the 2 steps: {n} (expected "
+        f"{2 * STR_LAYERS * 9}), {tc} on the tensor cores, at weight shapes "
+        f"{sorted(held['shapes'])}")
+    if n != 2 * STR_LAYERS * 9 or tc != n:
+        raise AssertionError(f"ragged GMM launches {n}, tensor cores {tc}")
+    del state, step
+    gc.collect()
+    kept = _hold_ragged(held)
+    for shape, way, rows_, err, rel in kept:
+        log(f"ragged GMM launch of step 1 at weight {tuple(shape)} ({way}, "
+            f"{rows_} rows) against moe_gmm_ragged_plain on its inputs: "
+            f"max_abs_err {err:.3g}, {rel:.3g} of the largest |output| "
+            f"(tolerance {TOL['bfloat16']:g}) ok")
+    torch.cuda.empty_cache()
+    return {"moe_gmm_ragged": n, "moe_gmm_ragged_tc": tc,
+            "shapes": sorted(held["shapes"]), "held": kept}
+
+
+def _rank_train_twin(mesh, twin):
+    """The float32 twin's loss and grads at the init and its params after
+    2 steps on the two ranks against the CPU world-1 run (1e-5)."""
+    from repro_torch.bridge import tree_flatten, tree_unflatten
+    from repro_torch.configs import get_smoke_config, reduced
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import build_model
+    from repro_torch.train import AdamWConfig, make_train_state, \
+        make_train_step
+    dev = mesh.device
+    cfg = reduced(get_smoke_config("qwen3-moe-30b-a3b"), n_layers=2,
+                  dtype="float32")
+    pol = _train_policy(cfg, mesh, B=4, S=16)
+    fns = build_model(cfg)
+    specs = sh.make_param_specs(twin["params"], cfg, pol)
+    params = sh.shard_params(twin["params"], specs, pol, device=dev)
+    rows = {k: pol.take_block(v, pol.batch_axes, 0).to(dev)
+            for k, v in twin["batch"].items()}
+    live = [p.detach().requires_grad_() for p in tree_flatten(params)]
+    loss, _ = fns.loss(tree_unflatten(params, live), rows, policy=pol)
+    grads = torch.autograd.grad(loss, live)
+    flat = sh.flatten_specs(specs)
+    g_err = max(max_err(g.cpu(), sh.local_block(r, s, pol)) for g, r, s in
+                zip(grads, tree_flatten(twin["grads"]), flat))
+    l_err = max_err(loss.detach().cpu(), twin["loss"])
+    opt = AdamWConfig(lr=STR_TWIN_LR, moment_dtype="float32")
+    state = make_train_state(params, opt, policy=pol)
+    step = make_train_step(lambda p, b: fns.loss(p, b, policy=pol), opt,
+                           policy=pol)
+    losses = []
+    for _ in range(2):
+        state, m = step(state, rows)
+        losses.append(float(m["loss"]))
+    s_err = max(abs(a - float(b)) for a, b in zip(losses, twin["losses"]))
+    p_err = max(max_err(t.cpu(), sh.local_block(r, s, pol)) for t, r, s in
+                zip(tree_flatten(state.params),
+                    tree_flatten(twin["params2"]), flat))
+    worst = max(g_err, l_err, s_err, p_err)
+    ok = worst <= 1e-5
+    log(f"float32 twin (qwen3-moe smoke config, 2 layers, 4 x 16 "
+                f"tokens) on the card against the CPU world-1 run: loss "
+                f"{l_err:.3g}, grads {g_err:.3g}, 2 steps' losses "
+                f"{s_err:.3g}, params after 2 steps (lr {STR_TWIN_LR:g}) "
+                f"{p_err:.3g} (bar 1e-05) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"float32 twin: {worst}")
+
+
+def _rank_serve_twins(mesh, twins):
+    """The float32 twins of xlstm-125m and seamless-m4t-large-v2 served on
+    the two ranks under a serve policy against the CPU world-1 run: logits
+    of the prefill and 4 decode steps within 1e-5."""
+    from repro_torch.configs import get_smoke_config, reduced
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import build_model
+    dev = mesh.device
+    for arch, t in twins.items():
+        cfg = reduced(get_smoke_config(arch), dtype="float32")
+        pol = sh.make_policy(cfg, ShapeConfig("twin", 32, 4, "decode"), mesh,
+                             "serve")
+        fns = build_model(cfg)
+        params = sh.shard_params(t["params"], sh.make_param_specs(
+            t["params"], cfg, pol), pol, device=dev)
+        abstract = fns.init_cache(4, 32, device="meta")
+        cache = sh.local_zeros(abstract, sh.cache_specs_tree(
+            cfg, pol, abstract), pol, dev)
+        rows = lambda x: pol.take_block(x, pol.batch_axes, 0).to(dev)  # noqa
+        batch = {k: rows(v) for k, v in t["batch"].items()}
+        dkw = {k: rows(v) for k, v in t["dkw"].items()}
+        lg, cache, _ = fns.prefill(params, batch, cache, policy=pol)
+        errs = [max_err(lg.cpu(), pol.take_block(t["logits"][0],
+                                                 pol.batch_axes, 0))]
+        for i, tok in enumerate(t["toks"]):
+            lg, cache, _ = fns.decode(params, rows(tok), cache,
+                                      batch["lengths"] + i, policy=pol,
+                                      **dkw)
+            errs.append(max_err(lg.cpu(), pol.take_block(
+                t["logits"][i + 1], pol.batch_axes, 0)))
+        ok = max(errs) <= 1e-5
+        log(f"float32 twin {arch} (smoke config; batch_axes "
+                    f"{pol.batch_axes}, kv_split {pol.kv_split} over "
+                    f"{pol.kv_split_axes}) on the card against the CPU "
+                    f"world-1 run: prefill + 4 decode steps, logits "
+                    f"max_abs_err {max(errs):.3g} (bar 1e-05) "
+                    f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"float32 twin {arch}: {errs}")
+
+
+def _rank_hybrid(mesh, job):
+    """hymba-1.5b at full width on the (1, 2) mesh under a serve policy:
+    each layer's attention and mamba branch fed the world-1 run's inputs
+    meet its outputs at the bf16 bar; the mamba state each rank carries is
+    its spec's block of channels and meets the world-1 state's; the decode
+    steps launch ``flash_decode`` on the tensor cores; one decode step
+    through the entry point, its wall and the collectives' share. Returns
+    the ``flash_decode`` launch counts (the layers' decode steps and the
+    entry point's)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as tfm
+    dev = mesh.device
+    cfg = _hymba_cfg()
+    pol = sh.make_policy(cfg, ShapeConfig("decode_b4_2k", HY_L, HY_B,
+                                          "decode"), mesh, "serve")
+    fns = build_model(cfg)
+    full = fns.init(torch.Generator(device=dev).manual_seed(job["seed"]),
+                    device=dev)
+    params = sh.shard_params(full, sh.make_param_specs(full, cfg, pol), pol)
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    abstract = fns.init_cache(HY_B, HY_L, device="meta")
+    cspecs = sh.cache_specs_tree(cfg, pol, abstract)
+    cache = sh.local_zeros(abstract, cspecs, pol, dev)
+    rec = torch.load(os.path.join(job["dir"], "hymba.pt"))
+    descs = tfm.period_descriptors(cfg)
+    P = len(descs)
+    ns = cfg.n_layers // P
+    views = tfm._sharded_block_views(params["blocks"], ns, pol)
+    d_in = cfg.ssm.expand * cfg.d_model
+    worst = {"attention": 0.0, "mamba": 0.0}
+    flash_decode.launches = flash_decode.tc_launches = 0
+    for step, (attn, mamba) in enumerate(zip(rec["attn"], rec["mamba"])):
+        mode = "prefill" if step == 0 else "decode"
+        for i, ((x, pos, out_ref), (xn, m_ref)) in enumerate(zip(attn,
+                                                                 mamba)):
+            s, j = divmod(i, P)
+            lp = views(s)[f"pos{j}"]
+            c = {k: v[s] for k, v in cache[f"pos{j}"].items()}
+            out, _ = tfm.attention_block(lp, cfg, descs[j], x.to(dev),
+                                         pos.to(dev), c, mode, None, pol)
+            worst["attention"] = max(worst["attention"],
+                                     bar_err(out.cpu(), out_ref))
+            state = None if mode == "prefill" else \
+                {"h": c["mamba_h"], "conv": c["mamba_conv"]}
+            m_out, st = tfm.mamba_block(
+                lp["mamba"], xn.to(dev), cfg.ssm.state_dim,
+                cfg.ssm.conv_width, state=state, chunk=cfg.ssm.chunk_size,
+                return_state=True, policy=pol, d_in=d_in)
+            c["mamba_h"].copy_(st["h"])
+            c["mamba_conv"].copy_(st["conv"])
+            worst["mamba"] = max(worst["mamba"], bar_err(m_out.cpu(), m_ref))
+    torch.cuda.synchronize()
+    n_dec, tc_dec = flash_decode.launches, flash_decode.tc_launches
+    st_err, shapes = 0.0, set()
+    for name, c in cache.items():
+        for k in ("mamba_h", "mamba_conv"):
+            ref = sh.local_block(rec["state"][name][k], cspecs[name][k], pol)
+            if tuple(c[k].shape) != tuple(ref.shape):
+                raise AssertionError(f"{name}/{k}: {tuple(c[k].shape)}, "
+                                     f"its channels {tuple(ref.shape)}")
+            shapes.add((k, tuple(c[k].shape)))
+            st_err = max(st_err, bar_err(c[k].cpu(), ref))
+    ok = max(max(worst.values()), st_err) <= TOL["bfloat16"]
+    steps = len(rec["attn"]) - 1
+    log(
+        f"hymba-1.5b, {cfg.n_layers} layers, policy kv_split "
+        f"{pol.kv_split} over {pol.kv_split_axes}: per layer against the "
+        f"world-1 run (prefill of {HY_B} x {HY_P} tokens, {steps} decode "
+        f"steps): |a - b| / (1 + |b|) at most {worst['attention']:.3g} "
+        f"(attention), {worst['mamba']:.3g} (mamba), {st_err:.3g} (the "
+        f"mamba state; this rank's blocks {sorted(shapes)}) (bar "
+        f"{TOL['bfloat16']:g}) {'ok' if ok else 'FAIL'}; flash_decode "
+        f"{n_dec} launches, {tc_dec} on the tensor cores")
+    if not ok:
+        raise AssertionError(f"hymba per-layer errors {worst}, state "
+                             f"{st_err}")
+    if n_dec == 0 or tc_dec != n_dec:
+        raise AssertionError(f"flash_decode launches {n_dec}, tensor cores "
+                             f"{tc_dec}")
+    lengths = rec["lengths"].to(dev) + steps
+    tok = rec["next"].to(dev)
+    import torch.distributed as dist
+    dist.barrier()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t0 = time.perf_counter()
+        lg, cache, _ = fns.decode(params, tok, cache, lengths, policy=pol)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    coll, n_coll = _collective_share(prof, wall)
+    n_all, tc_all = flash_decode.launches, flash_decode.tc_launches
+    log(f"hymba-1.5b decode step of {HY_B} rows through the entry "
+                f"point ({_card()}): {wall * 1e3:.1f} ms wall, of it "
+                f"{coll * 1e3:.1f} ms ({100 * coll / wall:.1f}%) in {n_coll} "
+                f"collectives (gloo, through the host); logits "
+                f"{tuple(lg.shape)} finite {bool(torch.isfinite(lg).all())}"
+                f"; flash_decode {n_all} launches in all, {tc_all} on the "
+                f"tensor cores")
+    if not torch.isfinite(lg).all():
+        raise AssertionError("hymba decode: logits not finite")
+    if n_all <= n_dec or tc_all != n_all:
+        raise AssertionError(f"flash_decode launches {n_all} ({n_dec} "
+                             f"before the entry point's step), tensor cores "
+                             f"{tc_all}")
+    del params, cache, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"flash_decode": n_all, "flash_decode_tc": tc_all}
+
+
+def sharded_train_rank(args) -> int:
+    """One rank of the sharded_train phase's two-rank worlds on the one
+    card: a (2, 1) and then a (1, 2) data x model mesh over gloo, each
+    running the full-width train steps and the float32 twins; the (1, 2)
+    mesh also runs hymba. Prints its lines and writes each mesh's launch
+    counts to ``counts_<mesh>_<rank>.json`` beside the job; exits
+    non-zero on a failed check."""
+    import torch.distributed as dist
+    with open(args.sharded_train_job) as f:
+        job = json.load(f)
+    sys.path.insert(0, job["src"])
+    from repro_torch.launch.mesh import make_device_mesh
+    rank = args.sharded_train_rank
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ref = torch.load(os.path.join(job["dir"], "reference.pt"))
+    for shape in job["meshes"]:
+        tag = "x".join(map(str, shape))
+        mesh = make_device_mesh(shape, ("data", "model"), "cuda",
+                                init_method=f"file://{job['store']}_{tag}",
+                                rank=rank, world_size=2)
+        t0 = time.perf_counter()
+        counts = _rank_train(mesh, job, ref)
+        _rank_train_twin(mesh, ref["twin"])
+        _rank_serve_twins(mesh, ref["serve"])
+        if shape == [1, 2]:
+            counts.update(_rank_hybrid(mesh, job))
+        with open(os.path.join(job["dir"], f"counts_{tag}_{rank}.json"),
+                  "w") as f:
+            json.dump(counts, f)
+        dist.barrier()
+        log(f"mesh {tuple(shape)} done in "
+                    f"{time.perf_counter() - t0:.1f} s")
+        dist.destroy_process_group()
+    return 0
+
+
 def main() -> int:
     args = parse_args()
     if args.sharded_rank is not None:    # started by sharded_phase
         return sharded_rank(args)
+    if args.sharded_train_rank is not None:   # by sharded_train_phase
+        return sharded_train_rank(args)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script only runs on the GPU",
               file=sys.stderr)
@@ -4137,6 +4980,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     sh_launches, sh_tc = sharded_phase(args, counters)
     phase_done("sharded")
+    gc.collect()
+    torch.cuda.empty_cache()
+    st_launches, st_tc, str_launches, str_tc = sharded_train_phase(
+        args, counters)
+    phase_done("sharded_train")
     # each kernel's main-path count: the dense cluster serve for the two
     # kernels of the dense plane, the paged cluster serve for the others
     main_launches = dict(launches, flash_decode=dense_launches["flash_decode"],
@@ -4176,7 +5024,9 @@ def main() -> int:
                        "dense_families": df_tc.get(name, 0),
                        "other_families": of_tc.get(name, 0),
                        "train": tr_tc.get(name, 0),
-                       "sharded": sh_tc.get(name, 0)}}
+                       "sharded": sh_tc.get(name, 0),
+                       "sharded_train": st_tc.get(name, 0),
+                       "sharded_train_ranks": str_tc.get(name, 0)}}
         kernels.append({
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1], "launches": main_launches[name],
@@ -4188,7 +5038,11 @@ def main() -> int:
                                  "dense_families": df_launches.get(name, 0),
                                  "other_families": of_launches.get(name, 0),
                                  "train": tr_launches.get(name, 0),
-                                 "sharded": sh_launches.get(name, 0)},
+                                 "sharded": sh_launches.get(name, 0),
+                                 "sharded_train": st_launches.get(name,
+                                                                  0),
+                                 "sharded_train_ranks": str_launches.get(
+                                     name, 0)},
             "max_abs_err": max(r["err"] for dt, r in rows
                                if dt.split("/")[0] in ("bfloat16", "int32")),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],

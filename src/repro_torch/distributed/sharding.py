@@ -21,13 +21,17 @@ one or more mesh axes). The reference's method names stay
 (``shard_resid``, ``shard_heads``, ``shard_kv_cache``, ...): each gives the
 local shape of a tensor of the given global shape under its spec.
 
-The port adds one field, ``cache_len``: the slot count of the dense cache
+The port adds two fields: ``cache_len``, the slot count of the dense cache
 of the cell (``shape.seq_len``), the one global fact that a rank holding
-only a slice of the ring cannot see in its shard.
+only a slice of the ring cannot see in its shard; and ``cfg``, the config
+the policy was made for, from which :func:`param_specs` gives the params'
+spec tree to the models, the optimizer and the train step alike (a rank's
+block carries no layout).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from math import prod
 from typing import Any, Optional, Tuple
 
@@ -70,6 +74,7 @@ class ShardingPolicy:
     kv_split: int = 1                  # split-K decode shards
     kv_split_axes: Tuple[str, ...] = ()
     cache_len: int = 0                 # the cell's dense-cache slots
+    cfg: Any = dataclasses.field(default=None, repr=False)
 
     # ---- sizes and this rank's place ---------------------------------
     @property
@@ -163,6 +168,12 @@ class ShardingPolicy:
         return self.shard_kv_cache(tuple(shape) + (1,))[:3]
 
     # ---- collectives ---------------------------------------------------
+    # Each collective is a ``torch.autograd.Function`` whose backward is the
+    # one its consumers call for (the usual tensor-parallel pairs): after
+    # the forward, a tensor that is the same on every rank of an axis
+    # carries its whole gradient on each of them, and a tensor that differs
+    # (a block, a partial sum, other rows) the gradient of its own part.
+    # Every sum runs in f32 (gloo: through a host copy).
     def _stage(self, t):
         """(the buffer a collective runs on, the map of its result back).
         gloo takes CPU tensors: a CUDA tensor goes through a host copy (the
@@ -174,21 +185,21 @@ class ShardingPolicy:
         wide = torch.float32 if dt in (torch.bfloat16, torch.float16) else dt
         return t.to("cpu", wide, copy=True), (lambda r: r.to(dev, dt))
 
-    def all_reduce(self, t, axes):
-        """The sum of ``t`` over the ranks of ``axes`` (a new tensor; ``t``
-        itself when ``axes`` span one rank)."""
+    def _reduce(self, t, axes, op: str = "sum"):
+        """The elementwise ``op`` of ``t`` over the ranks of ``axes``, no
+        autograd (a new tensor; ``t`` itself over one rank)."""
         axes = _axes(axes)
         if self.size(axes) == 1:
             return t
         import torch.distributed as dist
         with torch.profiler.record_function("collective:all_reduce"):
             buf, back = self._stage(t)
-            dist.all_reduce(buf, group=self.mesh.group(axes))
+            dist.all_reduce(buf, op={"sum": dist.ReduceOp.SUM,
+                                     "max": dist.ReduceOp.MAX}[op],
+                            group=self.mesh.group(axes))
             return back(buf)
 
-    def all_gather(self, t, axes, dim: int):
-        """The blocks of ``t`` from the ranks of ``axes``, concatenated
-        along ``dim`` in their order (the first axis major)."""
+    def _gather(self, t, axes, dim: int):
         axes = _axes(axes)
         n = self.size(axes)
         if n == 1:
@@ -200,6 +211,47 @@ class ShardingPolicy:
             dist.all_gather(parts, buf, group=self.mesh.group(axes))
             return back(torch.cat(parts, dim=dim))
 
+    def _sum32(self, g, axes):
+        axes = _axes(axes)
+        if self.size(axes) == 1:
+            return g
+        return self._reduce(g.float(), axes).to(g.dtype)
+
+    def all_reduce(self, t, axes, op: str = "sum"):
+        """The sum of ``t`` over the ranks of ``axes`` (``op="max"``: the
+        largest, no gradient): the sum of partial results (a row-parallel
+        product's, the statistics'). Backward: the identity, since the
+        ranks of ``axes`` consume the same sum."""
+        if op != "sum" or not _grad(t):
+            return self._reduce(t, axes, op)
+        return _AllReduce.apply(t, self, _axes(axes))
+
+    def all_gather(self, t, axes, dim: int, sum_axes=()):
+        """The blocks of ``t`` from the ranks of ``axes``, concatenated
+        along ``dim`` in their order (the first axis major). Backward: the
+        gradient summed over ``sum_axes`` (the axes whose ranks consume the
+        gathered tensor differently: other heads, other experts, other FFN
+        blocks), then this rank's block."""
+        if not _grad(t):
+            return self._gather(t, axes, dim)
+        return _AllGather.apply(t, self, _axes(axes), dim, _axes(sum_axes))
+
+    def enter(self, t, axes):
+        """The identity, whose backward sums the gradient over ``axes``:
+        where a tensor that is the same on the ranks of ``axes`` is
+        consumed differently by each (the entry of a column-parallel
+        product, heads or channels of their own)."""
+        if not _grad(t) or self.size(axes) == 1:
+            return t
+        return _Enter.apply(t, self, _axes(axes))
+
+    def split(self, t, axes, dim: int):
+        """This rank's block of ``t``, a tensor that is the same on the
+        ranks of ``axes``, whose backward gathers the blocks' gradients."""
+        if not _grad(t):
+            return self.take_block(t, axes, dim)
+        return _Split.apply(t, self, _axes(axes), dim)
+
     def take_block(self, t, axes, dim: int):
         """This rank's block of ``t`` along ``dim`` sharded over ``axes``."""
         n = self.size(axes)
@@ -209,14 +261,56 @@ class ShardingPolicy:
         return t.narrow(dim, self.index(axes) * k, k)
 
 
-def require_one_rank(policy, what: str) -> None:
-    """Raise where a policy over several ranks reaches an entry point that
-    does not honour it yet (ROADMAP.md Queue A item 11b): running it
-    unsharded would be another program, not a fallback."""
-    if policy is not None and policy.world_size > 1:
-        raise NotImplementedError(
-            f"{what} under a policy over {policy.world_size} ranks is "
-            f"ROADMAP Queue A item 11b")
+def _grad(t) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, pol, axes):
+        return pol._reduce(t, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, pol, axes):
+        ctx.pol, ctx.axes = pol, axes
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.pol._sum32(g, ctx.axes), None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, pol, axes, dim, sum_axes):
+        ctx.pol, ctx.axes, ctx.dim, ctx.sum_axes = pol, axes, dim, sum_axes
+        out = pol._gather(t, axes, dim)
+        return out.view_as(out) if out is t else out
+
+    @staticmethod
+    def backward(ctx, g):
+        pol = ctx.pol
+        g = pol._sum32(g, ctx.sum_axes)
+        return pol.take_block(g, ctx.axes, ctx.dim).contiguous(), None, \
+            None, None, None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, pol, axes, dim):
+        ctx.pol, ctx.axes, ctx.dim = pol, axes, dim
+        return pol.take_block(t, axes, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.pol._gather(g.contiguous(), ctx.axes, ctx.dim), None, \
+            None, None
 
 
 def _divides(b: int, sizes) -> bool:
@@ -261,7 +355,7 @@ def make_policy(cfg: ModelConfig, shape: Optional[ShapeConfig], mesh,
     return ShardingPolicy(
         mesh=mesh, batch_axes=batch_axes, fsdp_axes=fsdp_axes,
         expert_data_shard=expert_data_shard, kv_split=kv_split,
-        kv_split_axes=kv_axes, cache_len=cache_len)
+        kv_split_axes=kv_axes, cache_len=cache_len, cfg=cfg)
 
 
 # ---------------------------------------------------------------- trees
@@ -441,3 +535,152 @@ def spec_bytes(abstract, specs, pol: ShardingPolicy) -> int:
 
     _zip_trees(add, abstract, specs)
     return total[0]
+
+
+# ---------------------------------------------------------------- training
+# Under a train policy each rank holds its spec's block of every param;
+# the model gathers a block's FSDP dimensions just before the block runs
+# (inside its ``torch.utils.checkpoint`` region, so the recompute gathers
+# again), and the gathers' backward sums the gradient over the batch axes
+# and keeps this rank's block: a reduce-scatter. A leaf that the spec
+# leaves whole over a batch axis gets its gradient summed over that axis
+# (:func:`grad_entry`), the all-reduce that XLA inserts for the reference.
+EXPERT_LEAVES = ("w_gate", "w_up", "w_down")    # also what a migration moves
+
+
+def map_specs(fn, specs, path=()):
+    """``fn(path, spec)`` over a spec tree (dicts and lists of
+    :class:`PartitionSpec`), paths as :func:`tree_map_with_path` gives
+    them."""
+    if isinstance(specs, PartitionSpec):
+        return fn(path, specs)
+    if isinstance(specs, dict):
+        return {k: map_specs(fn, v, path + (_key_name(k),))
+                for k, v in specs.items()}
+    return [map_specs(fn, v, path + (_key_name(i),))
+            for i, v in enumerate(specs)]
+
+
+def spec_axes(spec, pol: Optional[ShardingPolicy] = None
+              ) -> Tuple[str, ...]:
+    """Every mesh axis a spec cuts over: in dimension order, or in the
+    mesh's order given ``pol`` (the order of the process groups that a
+    reduction over all of them runs on)."""
+    axes = tuple(a for s in spec for a in _axes(s))
+    if pol is None:
+        return axes
+    return tuple(a for a in pol.mesh.axis_names if a in axes)
+
+
+def param_specs(cfg: Optional[ModelConfig], pol: ShardingPolicy):
+    """The spec tree of ``cfg``'s params under ``pol`` (``cfg`` None: the
+    config the policy was made for), from the abstract params
+    (``models/api.param_specs_abstract``: global shapes on the ``meta``
+    device), which a rank's shards cannot show. Cached: the entry points
+    ask for it on every call; callers do not modify it."""
+    cfg = pol.cfg if cfg is None else cfg
+    if cfg is None:
+        raise ValueError("param_specs: the policy names no config; make "
+                         "it with make_policy")
+    if pol.cfg is not None and pol.cfg is not cfg and pol.cfg != cfg:
+        raise ValueError("param_specs: the policy was made for another "
+                         "config")
+    return _param_specs(cfg, pol)
+
+
+@functools.lru_cache(maxsize=32)
+def _param_specs(cfg: ModelConfig, pol: ShardingPolicy):
+    from repro_torch.models.api import param_specs_abstract
+    return make_param_specs(param_specs_abstract(cfg), cfg, pol)
+
+
+def leaf_specs(pol: Optional[ShardingPolicy]):
+    """The specs of the params of the config ``pol`` was made for
+    (:func:`param_specs`), in their leaf order, under a policy over several
+    ranks; None without one or over one rank."""
+    if pol is None or pol.world_size == 1:
+        return None
+    return flatten_specs(param_specs(None, pol))
+
+
+def fsdp_plan(specs, pol: ShardingPolicy, everything: bool = False):
+    """Per leaf, the part of its spec that the model gathers before use:
+    the dimensions cut over the FSDP axes only (``everything``: every cut
+    dimension, the world-1 blocks of xLSTM), except an expert leaf's FFN
+    dimension, which the MoE layer keeps cut (``expert_data_shard``)."""
+    fsdp = set(pol.fsdp_axes)
+
+    def visit(path, s):
+        if not everything and "moe" in path and path[-1] in EXPERT_LEAVES:
+            return P(*([None] * len(s)))
+        return P(*(e if e is not None and (everything or set(_axes(e))
+                                           <= fsdp) else None for e in s))
+
+    return map_specs(visit, specs)
+
+
+def drop_leading(specs):
+    """The specs of one layer of ``(n, ...)``-stacked leaves."""
+    return map_specs(lambda _, s: P(*tuple(s)[1:]), specs)
+
+
+def gather_leaves(tree, plan, pol: ShardingPolicy, promote=None):
+    """Each leaf gathered along the dimensions its ``plan`` entry names
+    (:func:`fsdp_plan`); a leaf that is None (a layer another rank holds)
+    stays None. Backward: summed over the batch axes among those the
+    dimension was cut on, then this rank's block. ``promote``: a dtype each
+    gathered leaf is first cast up to (``torch.promote_types``), for a
+    block that computes in the promoted type of its weights and
+    activations: its ranks' partial gradients are then summed before the
+    one rounding to the leaf's dtype, as on one rank."""
+    ba = set(pol.batch_axes)
+
+    def gather(t, s):
+        if t is None:
+            return None
+        if promote is not None and any(e is not None for e in s):
+            t = t.to(torch.promote_types(t.dtype, promote))
+        for d, e in enumerate(s):
+            if e is not None and pol.size(e) > 1:
+                t = pol.all_gather(t, e, d, sum_axes=tuple(
+                    a for a in _axes(e) if a in ba))
+        return t
+
+    return _zip_trees(gather, tree, plan)
+
+
+def grad_entry(tree, specs, pol: ShardingPolicy):
+    """Each leaf through :meth:`ShardingPolicy.enter` over the batch axes
+    its spec leaves whole: the forward is the identity, and the backward
+    sums the leaf's gradient over those axes, in f32."""
+    def visit(t, s):
+        axes = tuple(a for a in pol.batch_axes if a not in spec_axes(s))
+        return pol.enter(t, axes) if axes else t
+
+    return _zip_trees(visit, tree, specs)
+
+
+def gather_global(t: torch.Tensor, spec, pol: ShardingPolicy):
+    """The global tensor from every rank's block under ``spec`` (no
+    autograd); ``t`` itself where the spec cuts nothing."""
+    for d, e in enumerate(spec):
+        if e is not None:
+            t = pol._gather(t.contiguous(), e, d)
+    return t
+
+
+def flatten_specs(specs) -> list:
+    """The specs of a tree in ``bridge.tree_flatten``'s leaf order (dict
+    keys sorted, lists and NamedTuple fields in order), a
+    :class:`PartitionSpec` a leaf."""
+    if isinstance(specs, PartitionSpec):
+        return [specs]
+    if isinstance(specs, dict):
+        return [x for k in sorted(specs) for x in flatten_specs(specs[k])]
+    return [x for v in specs for x in flatten_specs(v)]
+
+
+def global_shape(t, spec, pol: ShardingPolicy) -> Tuple[int, ...]:
+    """The global shape of a rank's block ``t`` under ``spec``."""
+    spec = tuple(spec) + (None,) * (t.dim() - len(spec))
+    return tuple(d * pol.size(s) for d, s in zip(t.shape, spec))

@@ -16,9 +16,15 @@ corrupts the latest checkpoint.
 Two halves: model checkpoints of any nesting of tensors
 (``save_checkpoint``, ``restore_checkpoint``, ``checkpoint_step``: params,
 or a whole ``TrainState``), and the serving control plane's snapshots
-(``save_serving_state`` and its two readers). The reference's
-``shardings=`` waits for ROADMAP.md Queue A item 11b (training under a
-policy); ``restore_checkpoint`` takes a ``device`` in its place.
+(``save_serving_state`` and its two readers).
+
+Across the ranks of a policy (``shardings=(specs, policy)``: the spec
+tree of ``tree``, e.g. ``train_state_specs``, and the policy) a save
+gathers each leaf to its global value and rank 0 alone writes, then every
+rank waits at a barrier: the directory is the one a single process would
+write, bit for bit. A restore with ``shardings`` reads the global leaves
+and keeps each rank's block, which also restarts a run on another mesh
+(the reference's elastic restart).
 """
 from __future__ import annotations
 
@@ -84,10 +90,30 @@ def _leaf_tensor(raw: bytes, meta: Dict) -> torch.Tensor:
     return torch.from_numpy(arr.copy()).reshape(meta["shape"])
 
 
+def _gathered(tree, shardings):
+    """The leaves of ``tree`` in ``tree_flatten``'s order, each gathered to
+    its global value under ``shardings`` = (specs, policy)."""
+    from repro_torch.distributed.sharding import (flatten_specs,
+                                                   gather_global)
+    specs, pol = shardings
+    return [gather_global(t, s, pol) for t, s in
+            zip(tree_flatten(tree), flatten_specs(specs))]
+
+
 def save_checkpoint(path: str, tree: Any, *, step: int = 0,
-                    extra: Optional[Dict] = None) -> str:
+                    extra: Optional[Dict] = None, shardings=None) -> str:
     """Atomic save of a nesting of tensors (or arrays). Returns the final
-    directory."""
+    directory. ``shardings`` = (specs, policy): ``tree`` holds this rank's
+    blocks; every rank must call, rank 0 writes the global leaves."""
+    if shardings is not None and shardings[1].world_size > 1:
+        import torch.distributed as dist
+        leaves = _gathered(tree, shardings)
+        if dist.get_rank() == 0:
+            save_checkpoint(path, tree_unflatten(tree, leaves), step=step,
+                            extra=extra)
+        del leaves
+        dist.barrier()
+        return path
     tmp = path + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -113,11 +139,15 @@ def save_checkpoint(path: str, tree: Any, *, step: int = 0,
     return path
 
 
-def restore_checkpoint(path: str, like: Any, *, device=None) -> Any:
+def restore_checkpoint(path: str, like: Any, *, shardings=None,
+                       device=None) -> Any:
     """Restore into the nesting of ``like`` (leaf count and each shape
     checked, as the reference checks them). Each leaf comes back in its
     stored dtype, on ``device``, or where ``like``'s leaf lies when
-    ``device`` is None (the CPU for a leaf that is not a tensor)."""
+    ``device`` is None (the CPU for a leaf that is not a tensor, or a leaf
+    on the ``meta`` device). ``shardings`` = (specs, policy): ``like``
+    holds the global shapes (``meta`` tensors will do) and each leaf comes
+    back as this rank's block under its spec."""
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     like_leaves = tree_flatten(like)
@@ -125,6 +155,12 @@ def restore_checkpoint(path: str, like: Any, *, device=None) -> Any:
         raise ValueError(
             f"checkpoint has {manifest['n_leaves']} leaves, expected "
             f"{len(like_leaves)} — structure changed?")
+    s_leaves = [None] * len(like_leaves)
+    if shardings is not None:
+        from repro_torch.distributed.sharding import (flatten_specs,
+                                                       local_block)
+        specs, pol = shardings
+        s_leaves = flatten_specs(specs)
     out = []
     for i, (meta, ref) in enumerate(zip(manifest["leaves"], like_leaves)):
         with open(os.path.join(path, f"leaf_{i:05d}.zst"), "rb") as f:
@@ -132,8 +168,11 @@ def restore_checkpoint(path: str, like: Any, *, device=None) -> Any:
         if tuple(t.shape) != tuple(np.shape(ref)):
             raise ValueError(f"leaf {i}: shape {tuple(t.shape)} != "
                              f"{tuple(np.shape(ref))}")
+        if s_leaves[i] is not None:
+            t = local_block(t, s_leaves[i], pol).contiguous()
         dev = device if device is not None else (
-            ref.device if isinstance(ref, torch.Tensor) else "cpu")
+            ref.device if isinstance(ref, torch.Tensor)
+            and ref.device.type != "meta" else "cpu")
         out.append(t.to(dev))
     return tree_unflatten(like, out)
 

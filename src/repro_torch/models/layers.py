@@ -106,13 +106,16 @@ def mlp(params, x, policy=None, d_ff: int = 0):
     the product with ``up``. Under a policy whose ``model`` axis cuts the
     FFN width ``d_ff`` (column blocks of w_gate and w_up, row blocks of
     w_down on each rank), the ranks' partial products are summed over
-    ``model`` in f32."""
-    gate = x @ params["w_gate"]
-    up = x @ params["w_up"]
+    ``model`` in f32, and the input's gradient is summed over ``model``
+    (each rank's columns give a part of it)."""
+    cut = policy is not None and d_ff and policy.splits(d_ff,
+                                                        policy.model_axis)
+    xe = policy.enter(x, policy.model_axis) if cut else x
+    gate = xe @ params["w_gate"]
+    up = xe @ params["w_up"]
     h = F.silu(gate.float()).to(x.dtype) * up
     out = h @ params["w_down"]
-    if policy is not None and d_ff and policy.splits(d_ff,
-                                                    policy.model_axis):
+    if cut:
         out = policy.all_reduce(out.float(), policy.model_axis).to(x.dtype)
     return out
 
@@ -157,24 +160,36 @@ def lm_logits(params, cfg, x, policy=None):
     logits carry the model dtype's rounding. Under a policy whose ``model``
     axis cuts the vocabulary, each rank computes its block of columns and
     the blocks are gathered: every rank returns the whole (..., V)."""
+    cut = policy is not None and policy.splits(cfg.vocab_size,
+                                               policy.model_axis)
+    if cut:
+        x = policy.enter(x, policy.model_axis)
     if cfg.tie_embeddings:
         logits = x @ params["embedding"].T
     else:
         logits = x @ params["lm_head"]
     logits = logits.float()
-    if policy is not None and policy.splits(cfg.vocab_size,
-                                            policy.model_axis):
+    if cut:
         logits = policy.all_gather(logits, policy.model_axis, dim=-1)
     return softcap(logits, cfg.final_logit_softcap)
 
 
-def cross_entropy(logits, labels, mask=None):
+def cross_entropy(logits, labels, mask=None, policy=None):
     """Mean token cross-entropy in f32. logits (..., V), labels (...) int;
-    with ``mask`` (...) the mean over the masked tokens (at least 1)."""
+    with ``mask`` (...) the mean over the masked tokens (at least 1). Under
+    a policy whose batch axes span several ranks, each rank holds its rows:
+    the sum and the count are summed over the batch axes before the
+    division, so every rank returns the global batch's mean."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels.long()[..., None])[..., 0]
     nll = logz - gold
+    if policy is not None and policy.size(policy.batch_axes) > 1:
+        m = torch.ones_like(nll) if mask is None else mask.to(torch.float32)
+        ba = policy.batch_axes
+        total = policy.all_reduce(torch.sum(nll * m), ba)
+        return total / torch.clamp(policy.all_reduce(torch.sum(m), ba),
+                                   min=1.0)
     if mask is not None:
         m = mask.to(torch.float32)
         return torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)

@@ -12,10 +12,11 @@
   ``A[s, e]`` (logical expert ids), the latter from the
   ``source_expert_count`` kernel on the router's ids.
 * Under a policy over several ranks (``distributed/sharding.py``) the
-  experts are split over ``model`` (EP) and, under ``expert_data_shard``,
-  their FFN dimension over the data axes; each rank runs the slots routed
-  to its own experts through the same kernels, and the parts are summed
-  (:func:`_sharded_moe_layer`).
+  experts are split over ``model`` (EP) and, under ``expert_data_shard``
+  (always in training), their FFN dimension over the data axes; each rank
+  runs the slots routed to its own experts through the same kernels, and
+  the parts are summed (:func:`_sharded_moe_layer`). The collectives carry
+  gradients, so both dispatch modes train under a policy.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import EXPERT_LEAVES
 from repro_torch.kernels.moe_dispatch import (pick_row_block, ragged_combine,
                                               ragged_dispatch, ragged_gmm)
 from repro_torch.kernels.moe_gmm import moe_gmm
@@ -31,7 +33,6 @@ from repro_torch.kernels.source_expert_count import source_expert_count
 from repro_torch.models.layers import dense_init, init_mlp, mlp, torch_dtype
 
 
-EXPERT_LEAVES = ("w_gate", "w_up", "w_down")    # what a migration moves
 
 
 def init_moe(cfg, *, generator: torch.Generator, device="cuda"):
@@ -112,6 +113,29 @@ def _routing_stats(logical_idx, E, src2d, n_sources: int, token_mask,
     return stats
 
 
+class _ZerosTied(torch.autograd.Function):
+    """f32 zeros whose backward gives each input a zero gradient."""
+
+    @staticmethod
+    def forward(ctx, shape, *ts):
+        ctx.like = [(t.shape, t.dtype, t.device) for t in ts]
+        return torch.zeros(shape, dtype=torch.float32, device=ts[0].device)
+
+    @staticmethod
+    def backward(ctx, _):
+        return (None, *(torch.zeros(s, dtype=d, device=v)
+                        for s, d, v in ctx.like))
+
+
+def zeros_tied(shape, *ts):
+    """f32 zeros of ``shape``; under autograd, tied to ``ts`` (their
+    gradient zero), so that a rank whose part is empty still runs the
+    backward of the collectives that made ``ts``, as the other ranks do."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        return _ZerosTied.apply(tuple(shape), *ts)
+    return torch.zeros(shape, dtype=torch.float32, device=ts[0].device)
+
+
 def _ragged_moe_ffn(params, x, gates, logical_idx, placement, E, K, src2d,
                     n_sources: int, collect_stats: bool, token_mask=None,
                     e0: int = 0):
@@ -138,8 +162,8 @@ def _ragged_moe_ffn(params, x, gates, logical_idx, placement, E, K, src2d,
         local = (phys >= e0) & (phys < e0 + E_loc)
         sel = torch.nonzero(local.reshape(-1)).flatten()
         if not sel.numel():            # no slot routed to these experts
-            return torch.zeros((B, S, D), dtype=torch.float32,
-                               device=x.device), {}
+            return zeros_tied((B, S, D), x, gates,
+                              *(params[n] for n in EXPERT_LEAVES)), {}
         nb = pick_row_block(int(sel.numel()), E_loc)
         disp = ragged_dispatch(x2d[torch.div(sel, K, rounding_mode="floor")],
                                (phys.reshape(-1)[sel] - e0).reshape(-1, 1),
@@ -284,19 +308,25 @@ def _moe_epilogue(params, cfg, x, y, stats, probs, logical_idx, E, K,
 
     Under a policy ``y`` is this rank's f32 part of the sum over the axes
     ``red``, for the tokens ``xg`` (``x`` gathered over ``gather``): the
-    shared expert's part joins it (:func:`_shared_part`), the sum is
-    all_reduced and this rank's rows are taken back; the statistics and
-    the aux loss's batch means are summed over the batch axes."""
+    shared expert's part joins it where its parts are summed over axes of
+    ``red`` (:func:`_shared_part`, else summed on its own), the sum is
+    all_reduced and this rank's rows are taken back (their gradient
+    gathered back in the backward); the statistics and the aux loss's
+    batch means are summed over the batch axes."""
     if policy is None:
         if cfg.moe.n_shared_experts:
             y = y + mlp(params["shared"], x)
     else:
+        after = None
         if cfg.moe.n_shared_experts:
-            sh = _shared_part(params["shared"], cfg, xg, policy, red)
+            sh, after = _shared_part(params["shared"], cfg, x, xg, policy,
+                                     red, gather)
             if sh is not None:
                 y = y + sh
-        y = policy.take_block(policy.all_reduce(y, red), gather, 0) \
-            .to(x.dtype)
+        y = policy.split(policy.all_reduce(y, red), gather, 0)
+        if after is not None:
+            y = y + after
+        y = y.to(x.dtype)
     probs_mean = probs.reshape(-1, E).mean(dim=0)
     frac = F.one_hot(logical_idx.reshape(-1, K).long(), E).float() \
         .sum(dim=1).mean(dim=0)
@@ -310,34 +340,53 @@ def _moe_epilogue(params, cfg, x, y, stats, probs, logical_idx, E, K,
     return y, stats
 
 
-def _shared_part(shared, cfg, x, policy, red):
-    """A MoE layer's shared expert on the tokens ``x`` as this rank's part
-    of the sum over the axes ``red``: its FFN block under
-    ``expert_data_shard``, and, where the weights are the same on every
-    rank of an axis of ``red``, only that axis's rank 0 adds them. Under a
-    spec that cuts the shared stack's super-blocks over ``model``, one
-    ``model`` rank holds the layer's (its leaves are None on the others).
-    Returns f32, or None where this rank adds nothing."""
+def _shared_part(shared, cfg, x, xg, policy, red, gather):
+    """A MoE layer's shared expert under a policy -> (this rank's f32 part
+    of the sum over ``red`` for the tokens ``xg``, or None; else the
+    shared output for this rank's rows of ``x``, or None).
+
+    The shared output is a sum of parts over ``model`` where the spec cuts
+    the shared stack's super-blocks over it (one ``model`` rank holds the
+    layer's, its leaves None on the others) and over the FFN axes under
+    ``expert_data_shard`` where they cut its FFN dimension. Where those
+    axes are among ``red`` its part joins the routed experts' sum (on an
+    axis of ``red`` over which the weights are whole, only that axis's
+    rank 0 adds them; under autograd the others add zeros tied to the
+    weights, whose gradient is summed over the axis). Otherwise its parts
+    are gathered and summed on their own."""
     from repro_torch.models.transformer import n_super_blocks
     M = policy.model_axis
     m = cfg.moe
     fs_cut = policy.splits(m.n_shared_experts * m.d_shared,
                            policy.eds_axes)
     by_layer = policy.splits(n_super_blocks(cfg), M)
-    if (by_layer and M not in red) or \
-            (fs_cut and not set(policy.eds_axes) <= set(red)):
-        raise NotImplementedError(
-            f"{cfg.name}: a shared expert cut where the routed experts are "
-            f"not (ROADMAP Queue A item 11b)")
-    if shared["w_gate"] is None:       # another model rank's layer
-        return None
-    coords = policy.mesh.coords()
-    for a in red:
-        held_whole = (a == M and not by_layer) or \
-            (a in policy.eds_axes and not fs_cut and a != M)
-        if held_whole and coords[a]:
-            return None
-    return mlp(shared, x).float()
+    parts = tuple(a for a in policy.mesh.axis_names
+                  if (a == M and by_layer) or (fs_cut and a in
+                                               policy.eds_axes))
+    held = shared["w_gate"] is not None
+    grad = torch.is_grad_enabled() and xg.requires_grad
+    if set(parts) <= set(red):
+        if not held:                   # another model rank's layer
+            return None, None
+        coords = policy.mesh.coords()
+        whole = tuple(a for a in red
+                      if (a == M and not by_layer)
+                      or (a in policy.eds_axes and not fs_cut and a != M))
+        first = not any(coords[a] for a in whole)
+        if not grad:
+            return (mlp(shared, xg).float() if first else None), None
+        w = {k: policy.enter(v, whole) for k, v in shared.items()}
+        if first:
+            return mlp(w, xg).float(), None
+        return zeros_tied(tuple(xg.shape), xg, *w.values()), None
+    # the shared expert's parts are summed over axes the routed experts'
+    # are not: gather its tokens and sum its parts on their own
+    sg = tuple(a for a in policy.batch_axes if fs_cut and a in
+               policy.eds_axes)
+    xs = policy.all_gather(x, sg, 0, sum_axes=parts)
+    part = mlp(shared, xs).float() if held else \
+        zeros_tied(tuple(xs.shape), xs)
+    return None, policy.split(policy.all_reduce(part, parts), sg, 0)
 
 
 def _sharded_moe_layer(params, cfg, x, placement, gates, logical_idx, probs,
@@ -371,8 +420,13 @@ def _sharded_moe_layer(params, cfg, x, placement, gates, logical_idx, probs,
     regroup = not ragged and S == 1 and B * policy.size(ba) > 1
     gather = ba if regroup else \
         tuple(a for a in ba if f_cut and a in policy.eds_axes)
-    xg, gg, ig = (policy.all_gather(t, gather, 0)
-                  for t in (x, gates, logical_idx))
+    red = tuple(a for a in policy.mesh.axis_names
+                if (a == M and ep) or (f_cut and a in policy.eds_axes))
+    # each rank's experts read the gathered tokens and gates: their
+    # gradients are summed over red before this rank's rows are kept
+    xg, gg = (policy.all_gather(t, gather, 0, sum_axes=red)
+              for t in (x, gates))
+    ig = policy.all_gather(logical_idx, gather, 0)
     Bg = xg.shape[0]
     if ragged:
         y, _ = _ragged_moe_ffn(params, xg, gg, ig, placement, E, K, None, 0,
@@ -383,8 +437,6 @@ def _sharded_moe_layer(params, cfg, x, placement, gates, logical_idx, probs,
                             placement, E, K, cf, e0).reshape(Bg, 1, D)
     else:
         y = _padded_moe_ffn(params, xg, gg, ig, placement, E, K, cf, e0)
-    red = tuple(a for a in policy.mesh.axis_names
-                if (a == M and ep) or (f_cut and a in policy.eds_axes))
     return _moe_epilogue(params, cfg, x, y.float(), stats, probs,
                          logical_idx, E, K, policy, xg, red, gather)
 

@@ -315,10 +315,24 @@ def _mamba_scan(xc, dt, Bm, Cm, a_log, d_skip, h, chunk):
 
 
 def mamba_block(params, x, state_dim: int, conv_width: int, *, state=None,
-                chunk: int = 128, return_state: bool = False):
+                chunk: int = 128, return_state: bool = False, policy=None,
+                d_in: int = 0):
     """x: (B, S, D) -> (B, S, D), with an optional carried state (decode):
-    ``{"h": (B, d_in, N), "conv": (B, w - 1, d_in)}``, both f32."""
+    ``{"h": (B, d_in, N), "conv": (B, w - 1, d_in)}``, both f32.
+
+    Under a policy whose ``model`` axis cuts the ``d_in`` channels (``d_in``
+    the global count; ``make_param_specs`` cuts ``in_proj``, ``w_bc`` and
+    ``w_dt`` by columns, ``conv``, ``a_log`` and ``out_proj`` by channels,
+    ``cache_specs_tree`` the state by channels), each rank scans its own
+    channels and carries its block of the state: the projections' column
+    blocks are gathered over ``model`` (x and z, the conv output that
+    ``w_bc`` and ``w_dt`` read, B and C), and ``out_proj``'s row blocks are
+    summed over ``model`` in f32. The scan needs no collective."""
     B, S, D = x.shape
+    tp = policy is not None and policy.splits(d_in, policy.model_axis)
+    if tp:
+        return _mamba_block_tp(params, x, state_dim, conv_width, state,
+                               chunk, return_state, policy, d_in)
     d_in = params["out_proj"].shape[0]
     xz = x @ params["in_proj"]
     xs, z = torch.split(xz, d_in, dim=-1)                    # (B, S, d_in)
@@ -327,16 +341,8 @@ def mamba_block(params, x, state_dim: int, conv_width: int, *, state=None,
         state = mamba_state_init(B, d_in, state_dim, conv_width,
                                  device=x.device)
 
-    # depthwise causal conv along S over the carried conv tail
-    conv_in = torch.cat([state["conv"].to(xs.dtype), xs], dim=1)
-    idx = torch.arange(S, device=x.device)[:, None] \
-        + torch.arange(conv_width, device=x.device)[None, :]
-    windows = conv_in[:, idx]                                # (B, S, w, d_in)
-    xconv = torch.einsum("bswd,wd->bsd", windows, params["conv"])
-    xconv = F.silu(xconv.float())
-    new_conv = (conv_in[:, -(conv_width - 1):].float() if conv_width > 1
-                else state["conv"])
-
+    xconv, new_conv = _causal_conv(xs, params["conv"], state["conv"],
+                                   conv_width)
     xcd = xconv.to(x.dtype)
     bc = (xcd @ params["w_bc"]).float()
     Bmat, Cmat = torch.split(bc, state_dim, dim=-1)
@@ -346,6 +352,57 @@ def mamba_block(params, x, state_dim: int, conv_width: int, *, state=None,
                        params["d_skip"], state["h"], chunk)
     y = y.to(x.dtype) * F.silu(z.float()).to(x.dtype)
     out = y @ params["out_proj"]
+    if return_state:
+        return out, {"h": h, "conv": new_conv}
+    return out
+
+
+def _causal_conv(xs, conv, conv_state, conv_width: int):
+    """Depthwise causal conv along S over the carried conv tail: xs (B, S,
+    C), conv (w, C), conv_state (B, w - 1, C) -> (silu of the conv in f32,
+    the new tail in f32)."""
+    S = xs.shape[1]
+    conv_in = torch.cat([conv_state.to(xs.dtype), xs], dim=1)
+    idx = torch.arange(S, device=xs.device)[:, None] \
+        + torch.arange(conv_width, device=xs.device)[None, :]
+    windows = conv_in[:, idx]                                # (B, S, w, C)
+    xconv = F.silu(torch.einsum("bswd,wd->bsd", windows, conv).float())
+    new_conv = (conv_in[:, -(conv_width - 1):].float() if conv_width > 1
+                else conv_state)
+    return xconv, new_conv
+
+
+def _mamba_block_tp(params, x, state_dim, conv_width, state, chunk,
+                    return_state, policy, d_in):
+    """:func:`mamba_block` on this rank's ``d_in / m`` channels (see
+    there). Gradients: the input's is summed over ``model`` (each rank's
+    columns of ``in_proj`` give a part of it), and so are those of the
+    gathered x/z, conv output and B/C (each rank reads its own channels of
+    them, or, for B and C, its own channels' scan) and of ``d_skip``."""
+    B, S, D = x.shape
+    M = policy.model_axis
+    n = d_in // policy.model_size
+    c0 = policy.index(M) * n
+    xz = policy.all_gather(policy.enter(x, M) @ params["in_proj"], M, -1,
+                           sum_axes=M)                       # (B, S, 2 d_in)
+    xs, z = xz[..., c0:c0 + n], xz[..., d_in + c0:d_in + c0 + n]
+    if state is None:
+        state = mamba_state_init(B, n, state_dim, conv_width,
+                                 device=x.device)
+    xconv, new_conv = _causal_conv(xs, params["conv"], state["conv"],
+                                   conv_width)
+    xcd = policy.all_gather(xconv.to(x.dtype), M, -1, sum_axes=M)
+    if policy.splits(2 * state_dim, M):
+        bc = policy.all_gather(xcd @ params["w_bc"], M, -1, sum_axes=M)
+    else:
+        bc = policy.enter(xcd @ params["w_bc"], M)
+    Bmat, Cmat = torch.split(bc.float(), state_dim, dim=-1)
+    dt = F.softplus((xcd @ params["w_dt"]).float())          # own channels
+    d_skip = policy.take_block(policy.enter(params["d_skip"], M), M, 0)
+    y, h = _mamba_scan(xconv, dt, Bmat, Cmat, params["a_log"], d_skip,
+                       state["h"], chunk)
+    y = y.to(x.dtype) * F.silu(z.float()).to(x.dtype)
+    out = policy.all_reduce((y @ params["out_proj"]).float(), M).to(x.dtype)
     if return_state:
         return out, {"h": h, "conv": new_conv}
     return out

@@ -33,8 +33,10 @@ head, experts over ``model`` (``moe.py``), and the ring cache cut over the
 policy's ``kv_split_axes`` with split-K decode (:func:`split_decode`, the
 reference's ``_split_decode``); a policy over one rank changes no bit, and
 a ``kv_split`` forced above one there runs the shards one after another.
-A hybrid config, and ``loss_fn``, take a policy over one rank only (ROADMAP
-Queue A item 11b); the paged entry points take none, as in the reference.
+A hybrid layer's mamba branch runs each rank's channels (``models/ssm.py``).
+``loss_fn`` takes a train policy: FSDP over the data axes, TP and EP over
+``model``, the batch over the batch axes (:func:`train_view`). The paged
+entry points take none, as in the reference.
 
 ``loss_fn`` is the training entry point: causal attention over the whole
 sequence (mode ``"train"``, no cache), each super-block recomputed in the
@@ -54,7 +56,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.bridge import tree_leaves, tree_map
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import require_one_rank
+from repro_torch.distributed.sharding import (drop_leading, fsdp_plan,
+                                               gather_leaves, grad_entry,
+                                               param_specs)
 from repro_torch.kernels.kv_pack import (pack_kv_into_pages,
                                          pack_kv_into_ring, page_slots,
                                          unpack_kv)
@@ -342,32 +346,42 @@ def _qkv_heads(lp, cfg, xn, positions, policy=None, full_q=False):
     columns, each rank projects its own columns; k and v are gathered to
     all KV heads (the cache holds them all), and q too where the cut does
     not fall between heads, or ``full_q`` asks for every head (split-K
-    decode attends with all of them)."""
+    decode attends with all of them).
+
+    Gradients: ``xn``'s is summed over ``model`` where a projection is cut
+    (each rank's columns give a part of it); where each rank attends with
+    its own heads, so are k's and v's (after the norm and RoPE) and
+    ``q_norm``'s."""
     B, S, _ = xn.shape
-    q = xn @ lp["wq"]
-    k = xn @ lp["wk"]
-    v = xn @ lp["wv"]
+    M = policy.model_axis if policy is not None else None
+    cut_q = policy is not None and policy.splits(cfg.q_dim, M)
+    cut_kv = policy is not None and policy.splits(cfg.kv_dim, M)
+    own_heads = cut_q and not (full_q or cfg.n_heads % policy.model_size)
+    xe = policy.enter(xn, M) if cut_q or cut_kv else xn
+    q = (xe if cut_q else xn) @ lp["wq"]
+    k = (xe if cut_kv else xn) @ lp["wk"]
+    v = (xe if cut_kv else xn) @ lp["wv"]
     if cfg.qkv_bias:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
     h0 = 0
-    if policy is not None:
-        M = policy.model_axis
-        if policy.splits(cfg.kv_dim, M):
-            k = policy.all_gather(k, M, dim=-1)
-            v = policy.all_gather(v, M, dim=-1)
-        if policy.splits(cfg.q_dim, M):
-            if full_q or cfg.n_heads % policy.model_size:
-                q = policy.all_gather(q, M, dim=-1)
-            else:
-                h0 = policy.index(M) * (cfg.n_heads // policy.model_size)
+    if cut_kv:
+        k = policy.all_gather(k, M, dim=-1)
+        v = policy.all_gather(v, M, dim=-1)
+    if own_heads:
+        h0 = policy.index(M) * (cfg.n_heads // policy.model_size)
+    elif cut_q:
+        q = policy.all_gather(q, M, dim=-1)
     q = q.reshape(B, S, -1, cfg.head_dim)
     k = k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
     v = v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
-        q = rms_norm(q, lp["q_norm"], cfg.norm_eps)
+        qn = policy.enter(lp["q_norm"], M) if own_heads else lp["q_norm"]
+        q = rms_norm(q, qn, cfg.norm_eps)
         k = rms_norm(k, lp["k_norm"], cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    if own_heads:
+        k, v = policy.enter(k, M), policy.enter(v, M)
     return q, k, v, h0
 
 
@@ -610,8 +624,9 @@ def attention_block(lp, cfg, desc, x, positions, cache, mode, paged=None,
     """x: (B, S, D); positions (B, S). Returns (attn_out, cache). Mode
     ``"train"``: causal attention over the S tokens with the layer's window
     and softcap, no cache. Under a policy: TP heads (each rank projects its
-    columns of wq, wk, wv; k and v gathered to all KV heads), the ring cut
-    over the policy's ``kv_split_axes`` with split-K decode, and the output
+    columns of wq, wk, wv; k and v gathered to all KV heads; in prefill and
+    train each rank attends with its own query heads), the ring cut over
+    the policy's ``kv_split_axes`` with split-K decode, and the output
     projection's row blocks summed over ``model``."""
     if mode not in ("train", "prefill", "decode", "paged_prefill",
                     "paged_decode"):
@@ -620,8 +635,9 @@ def attention_block(lp, cfg, desc, x, positions, cache, mode, paged=None,
     xn = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
     q, k, v, h0 = _qkv_heads(lp["attn"], cfg, xn, positions, policy,
                              full_q=mode == "decode")
-    if mode == "train":              # one rank: every head (check_policy)
-        out = flash_attention(q, k, v, q_pos=positions, k_pos=positions,
+    if mode == "train":              # this rank's query heads, no cache
+        kq, vq = _kv_for_heads(cfg, k, v, h0, q.shape[2])
+        out = flash_attention(q, kq, vq, q_pos=positions, k_pos=positions,
                               causal=True,
                               window=cfg.sliding_window if desc.local else 0,
                               softcap_val=cfg.attn_logit_softcap)
@@ -631,18 +647,25 @@ def attention_block(lp, cfg, desc, x, positions, cache, mode, paged=None,
     else:
         out, cache = _paged_attention(cfg, q, k, v, positions, cache, mode,
                                       paged)
-    out = out.reshape(B, S, -1)
-    M = policy.model_axis if policy is not None else None
-    if policy is not None and policy.splits(cfg.q_dim, M):
-        if out.shape[-1] == cfg.q_dim:     # every head: keep this rank's
-            out = policy.take_block(out, M, -1)
-        out = policy.all_reduce((out @ lp["attn"]["wo"]).float(), M) \
-            .to(x.dtype)
-    else:
-        out = out @ lp["attn"]["wo"]
+    out = out_projection(lp["attn"], cfg, out.reshape(B, S, -1), x.dtype,
+                         policy)
     if cfg.post_norms:
         out = rms_norm(out, lp["post_attn_norm"], cfg.norm_eps)
     return out, cache
+
+
+def out_projection(ap, cfg, out, dtype, policy=None):
+    """The attention output (B, S, heads * hd) through ``wo``. Under a
+    policy whose ``model`` axis cuts the heads' columns, each rank
+    multiplies its block of them (taken from ``out`` where ``out`` holds
+    every head) by its rows of ``wo``, and the parts are summed over
+    ``model`` in f32."""
+    M = policy.model_axis if policy is not None else None
+    if policy is None or not policy.splits(cfg.q_dim, M):
+        return out @ ap["wo"]
+    if out.shape[-1] == cfg.q_dim:     # every head: keep this rank's
+        out = policy.split(out, M, -1)
+    return policy.all_reduce((out @ ap["wo"]).float(), M).to(dtype)
 
 
 # ------------------------------------------------------------------ layer
@@ -662,7 +685,8 @@ def decoder_layer(lp, cfg, desc, x, positions, cache, mode, placement_row,
             state = {"h": cache["mamba_h"], "conv": cache["mamba_conv"]}
         m_out, m_state = mamba_block(
             lp["mamba"], xn, cfg.ssm.state_dim, cfg.ssm.conv_width,
-            state=state, chunk=cfg.ssm.chunk_size, return_state=True)
+            state=state, chunk=cfg.ssm.chunk_size, return_state=True,
+            policy=policy, d_in=cfg.ssm.expand * cfg.d_model)
         if mode in ("prefill", "decode"):
             cache["mamba_h"].copy_(m_state["h"])
             cache["mamba_conv"].copy_(m_state["conv"])
@@ -803,8 +827,13 @@ def commit_expert_prefetch(params, staged) -> int:
 
 def superblock_forward(blk_params, cfg, descs, x, positions, blk_cache,
                        mode, blk_placement, source_ids, n_sources,
-                       collect_stats, paged=None, ragged=True, policy=None):
-    """One super-block (period of layers). Returns (x, stats (mp, ...))."""
+                       collect_stats, paged=None, ragged=True, policy=None,
+                       plan=None):
+    """One super-block (period of layers). Returns (x, stats (mp, ...)).
+    ``plan``: the dimensions of each leaf to gather first
+    (``sharding.fsdp_plan``: FSDP in training)."""
+    if plan is not None:
+        blk_params = gather_leaves(blk_params, plan, policy)
     stats_list = []
     mi = 0
     for j, desc in enumerate(descs):
@@ -830,12 +859,15 @@ def superblock_forward(blk_params, cfg, descs, x, positions, blk_cache,
 
 def _stack_forward(params, cfg, x, positions, cache, mode, placement,
                    source_ids, n_sources, collect_stats, paged=None,
-                   ragged=True, remat=False, policy=None):
+                   ragged=True, remat=False, policy=None, plan=None):
     """Loop over super-blocks. x: (B, S, D). The KV cache or page pool is
     written in place. ``remat``: each super-block's activations are
     recomputed in the backward instead of kept
     (``torch.utils.checkpoint``), so the kernels of a super-block launch
-    twice a training step. Returns (x, cache, stats (ns * mp, ...))."""
+    twice a training step. ``plan``: one layer's gather plan of the
+    ``blocks`` leaves (FSDP), applied inside each super-block's region, so
+    a gathered block is freed after it and gathered again in the
+    recompute. Returns (x, cache, stats (ns * mp, ...))."""
     descs = period_descriptors(cfg)
     ns = n_super_blocks(cfg)
     mp = len(_moe_positions(descs))
@@ -850,7 +882,8 @@ def _stack_forward(params, cfg, x, positions, cache, mode, placement,
             if cache is not None else None
         args = (block(i), cfg, descs, x, positions, blk_cache, mode,
                 placement_r[i] if placement_r is not None else None,
-                source_ids, n_sources, collect_stats, paged, ragged, policy)
+                source_ids, n_sources, collect_stats, paged, ragged, policy,
+                plan)
         if remat:
             x, stats = checkpoint(superblock_forward, *args,
                                   use_reentrant=False)
@@ -869,23 +902,21 @@ def _sharded_block_views(blocks, ns: int, policy):
     """``i -> `` super-block i's params on this rank. A stacked leaf whose
     super-block dimension the spec cuts over ``model`` (a MoE layer's shared
     expert, whose 3-d rule lands on that dimension) holds ns / m blocks: its
-    block i is on one ``model`` rank, and None on the others."""
-    def view(i):
-        def pick(a):
-            if a.shape[0] == ns:
-                return a[i]
-            n_loc = a.shape[0]
-            return a[i % n_loc] if i // n_loc \
-                == policy.index(policy.model_axis) else None
-        return tree_map(pick, blocks)
-    return view
+    block i is on one ``model`` rank, and None on the others. With grads on,
+    each leaf is unbound once (:func:`layer_views`)."""
+    grad = torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in tree_leaves(blocks))
+    me = policy.index(policy.model_axis)
 
+    def picker(a):
+        src = a.unbind(0) if grad else a
+        n_loc = a.shape[0]
+        if n_loc == ns:
+            return lambda i: src[i]
+        return lambda i: src[i % n_loc] if i // n_loc == me else None
 
-def check_policy(cfg: ModelConfig, policy, entry: str):
-    """A hybrid model, and training, take a policy over one rank only for
-    now (ROADMAP.md Queue A item 11b)."""
-    if cfg.family == "hybrid" or entry == "loss_fn":
-        require_one_rank(policy, f"{cfg.name}: {entry}")
+    pickers = tree_map(picker, blocks)
+    return lambda i: tree_map(lambda f: f(i), pickers)
 
 
 def _inputs_to_embed(params, cfg, batch, policy=None):
@@ -896,17 +927,39 @@ def _inputs_to_embed(params, cfg, batch, policy=None):
     return embed_tokens(params["embed"], cfg, batch["tokens"], policy)
 
 
+def train_view(params, cfg: ModelConfig, policy):
+    """Under a train policy over several ranks: (the params as the loss
+    reads them, one layer's gather plan of ``blocks``). Every leaf's
+    gradient is summed over the batch axes its spec leaves whole
+    (``sharding.grad_entry``); the embedding's FSDP dimensions are
+    gathered here, each block's inside its super-block
+    (:func:`superblock_forward`). (params, None) otherwise."""
+    if policy is None or policy.world_size == 1:
+        return params, None
+    specs = param_specs(cfg, policy)
+    params = grad_entry(params, specs, policy)
+    plan = fsdp_plan(specs, policy)
+    return dict(params, embed=gather_leaves(params["embed"], plan["embed"],
+                                            policy)), \
+        drop_leading(plan["blocks"])
+
+
 def loss_fn(params, cfg: ModelConfig, batch, *, placement=None,
             policy=None, aux_weight: float = 0.01, ragged: bool = True):
     """batch: {tokens (B, S) or, for a VLM config, embeddings (B, S, D);
     labels (B, S); mask (B, S) optional} -> (loss, {"ce", "aux"}): the
     token cross-entropy plus ``aux_weight`` times the mean router aux loss
     of the MoE layers (0 without experts). Positions run 0..S-1; ``ragged``
-    picks the MoE dispatch, as in the other entry points. ``policy``: one
-    rank only (training under a policy over several is ROADMAP item
-    11b)."""
-    check_policy(cfg, policy, "loss_fn")
-    x = _inputs_to_embed(params, cfg, batch)
+    picks the MoE dispatch, as in the other entry points.
+
+    Under a train policy (``make_policy(..., "train")``) each rank passes
+    its rows of the batch and its shard of the params
+    (``shard_params(params, make_param_specs(params, cfg, policy),
+    policy)``) and gets the loss of the global batch; its gradients are
+    the blocks of the global ones that its shards hold (FSDP over the
+    data axes, TP and EP over ``model``, :func:`train_view`)."""
+    params, plan = train_view(params, cfg, policy)
+    x = _inputs_to_embed(params, cfg, batch, policy)
     B, S = x.shape[:2]
     dev = x.device
     positions = torch.arange(S, dtype=torch.int32, device=dev)[None] \
@@ -915,10 +968,11 @@ def loss_fn(params, cfg: ModelConfig, batch, *, placement=None,
         placement = identity_placement(cfg, dev)
     x, _, stats = _stack_forward(
         params, cfg, x, positions, None, "train", placement, None, 0,
-        collect_stats=cfg.moe.enabled, ragged=ragged, remat=True)
+        collect_stats=cfg.moe.enabled, ragged=ragged, remat=True,
+        policy=policy, plan=plan)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = lm_logits(params["embed"], cfg, x)
-    ce = cross_entropy(logits, batch["labels"], batch.get("mask"))
+    logits = lm_logits(params["embed"], cfg, x, policy)
+    ce = cross_entropy(logits, batch["labels"], batch.get("mask"), policy)
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     if stats is not None and "aux_loss" in stats:
         aux = stats["aux_loss"].mean()
@@ -1026,7 +1080,6 @@ def prefill(params, cfg: ModelConfig, batch, cache, *, placement=None,
     lengths (B,) optional} -> (logits at each row's last real token (B, V),
     cache, stats). Positions run 0..S-1; the cache (from
     :func:`init_cache`) is written in place."""
-    check_policy(cfg, policy, "prefill")
     x = _inputs_to_embed(params, cfg, batch, policy)
     B, S = x.shape[:2]
     dev = x.device
@@ -1054,7 +1107,6 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, lengths, *,
     """tokens (B,) int32; lengths (B,) current context length per row (the
     new token is written at position lengths[b]). Every row decodes and
     every row's routing counts in the statistics, as in the reference."""
-    check_policy(cfg, policy, "decode_step")
     x = embed_tokens(params["embed"], cfg, tokens[:, None], policy)
     positions = lengths.to(torch.int32)[:, None]
     if placement is None:

@@ -14,6 +14,17 @@ those of a whole-leaf pass): at full width one stacked expert leaf holds
 would take tens of GB. ``apply_updates`` leaves ``params`` and ``state``
 as they are; it consumes ``grads``, whose leaves may receive the new
 params.
+
+Under a policy over several ranks each rank holds its blocks of the params
+and grads, laid out by the policy's spec tree (``sharding.leaf_specs``).
+The global norm sums
+each leaf's squares over the axes the leaf is cut on, counting a
+replicated leaf once; fp32 and bf16 moments are cut like their params and
+updated elementwise; int8 moments are replicated, as the reference's train
+cell lays them out (``launch/cells.py``: ``P()`` for ``mu``/``nu`` when
+``moment_dtype == "int8"``), so their 128-element blocks are those of the
+whole leaf: a cut leaf's grad and params are gathered, the whole leaf is
+updated, and each rank keeps its block of the new params.
 """
 from __future__ import annotations
 
@@ -24,6 +35,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.bridge import tree_flatten, tree_map, tree_unflatten
+from repro_torch.distributed.sharding import (gather_global, global_shape,
+                                               leaf_specs, local_block,
+                                               spec_axes)
 
 # elements of one leaf updated at once (64 MiB of f32 per transient)
 SLICE_ELEMS = 1 << 24
@@ -83,21 +97,32 @@ def _torch_dtype(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
 
 
-def init_opt_state(params, cfg: AdamWConfig) -> OptState:
+def init_opt_state(params, cfg: AdamWConfig, *, policy=None) -> OptState:
+    """Zero moments. Under a policy over several ranks int8 moments hold
+    the whole leaf's blocks."""
     dev = next(iter(tree_flatten(params))).device
     step = torch.zeros((), dtype=torch.int32, device=dev)
     if cfg.moment_dtype == "int8":
+        sizes = [t.numel() for t in tree_flatten(params)]
+        s_leaves = leaf_specs(policy)
+        if s_leaves is not None:
+            sizes = [int(torch.Size(global_shape(t, s, policy)).numel())
+                     for t, s in zip(tree_flatten(params), s_leaves)]
+        leaves = tree_flatten(params)
+
         # the codes and scales of zeros: all zero
-        def codes(p):
-            return torch.zeros((-(-p.numel() // cfg.block), cfg.block),
-                               dtype=torch.int8, device=p.device)
+        def codes():
+            return tree_unflatten(params, [
+                torch.zeros((-(-n // cfg.block), cfg.block),
+                            dtype=torch.int8, device=p.device)
+                for n, p in zip(sizes, leaves)])
 
-        def scales(p):
-            return torch.zeros(-(-p.numel() // cfg.block),
-                               dtype=torch.float32, device=p.device)
+        def scales():
+            return tree_unflatten(params, [
+                torch.zeros(-(-n // cfg.block), dtype=torch.float32,
+                            device=p.device) for n, p in zip(sizes, leaves)])
 
-        return OptState(step, tree_map(codes, params), tree_map(codes, params),
-                        tree_map(scales, params), tree_map(scales, params))
+        return OptState(step, codes(), codes(), scales(), scales())
     dt = _torch_dtype(cfg.moment_dtype)
 
     def zeros(p):
@@ -115,15 +140,29 @@ def _slices(n: int, size: int):
         yield a, min(a + size, n)
 
 
-def global_norm(tree):
+def global_norm(tree, policy=None):
     """sqrt of the sum over leaves (in the reference's leaf order) of each
-    leaf's f32 sum of squares, taken a slice at a time."""
-    total = None
+    leaf's f32 sum of squares, taken a slice at a time. Under a policy over
+    several ranks each leaf's sum is summed over the axes its spec cuts
+    (one all_reduce for the leaves cut on the same axes), so a replicated
+    leaf counts once."""
+    sums = []
     for g in tree_flatten(tree):
         flat = g.reshape(-1)
-        sq = sum(flat[a:b].float().square().sum()
-                 for a, b in _slices(flat.numel(), SLICE_ELEMS))
-        total = sq if total is None else total + sq
+        sums.append(sum(flat[a:b].float().square().sum()
+                        for a, b in _slices(flat.numel(), SLICE_ELEMS)))
+    s_leaves = leaf_specs(policy)
+    if s_leaves is None:
+        total = None
+        for sq in sums:
+            total = sq if total is None else total + sq
+        return torch.sqrt(total)
+    groups = {}
+    for sq, s in zip(sums, s_leaves):
+        axes = spec_axes(s, policy)
+        groups[axes] = groups[axes] + sq if axes in groups else sq
+    total = sum(policy.all_reduce(groups[axes], axes)
+                for axes in sorted(groups))
     return torch.sqrt(total)
 
 
@@ -148,18 +187,21 @@ def _output_buffers(params, grads):
     return out
 
 
-def apply_updates(params, grads, state: OptState, cfg: AdamWConfig):
+def apply_updates(params, grads, state: OptState, cfg: AdamWConfig, *,
+                  policy=None):
     """One AdamW step -> (new params, new OptState). ``params`` and
     ``state`` are left as they are (the caller may still hold them);
     ``grads`` is consumed: a grad leaf that owns its memory receives its
     leaf's new params. The gradient is clipped by the global norm, the
-    bias corrections are ``1 - b ** step`` in f32."""
+    bias corrections are ``1 - b ** step`` in f32. ``policy``: the blocks
+    of a policy over several ranks (see the module)."""
     step = state.step + 1
     p_leaves = tree_flatten(params)
     g_leaves = tree_flatten(grads)
+    s_leaves = leaf_specs(policy) or [None] * len(p_leaves)
     clip = None
     if cfg.grad_clip > 0:
-        gn = global_norm(grads)
+        gn = global_norm(grads, policy)
         clip = torch.clamp(torch.full_like(gn, cfg.grad_clip)
                            / torch.clamp(gn, min=1e-9), max=1.0)
     stepf = step.float()
@@ -178,6 +220,13 @@ def apply_updates(params, grads, state: OptState, cfg: AdamWConfig):
         new = [[torch.empty_like(t) for t in leaves] for leaves in (mu, nu)]
     size = max(cfg.block, SLICE_ELEMS // cfg.block * cfg.block)
     for i, (p, g, out) in enumerate(zip(p_leaves, g_leaves, outs)):
+        spec = s_leaves[i]
+        whole = int8 and spec is not None and \
+            policy.size(spec_axes(spec)) > 1
+        if whole:             # replicated int8 moments: the whole leaf
+            p = gather_global(p, spec, policy)
+            g = gather_global(g, spec, policy)
+            block_out, out = out, torch.empty_like(p)
         pf, gf, of = p.reshape(-1), g.reshape(-1), out.view(-1)
         for a, b in _slices(pf.numel(), size):
             g32 = gf[a:b].float()
@@ -206,6 +255,8 @@ def apply_updates(params, grads, state: OptState, cfg: AdamWConfig):
             else:
                 new[0][i].view(-1)[a:b] = m32
                 new[1][i].view(-1)[a:b] = v32
+        if whole:
+            block_out.copy_(local_block(out, spec, policy))
     new_params = tree_unflatten(params, outs)
     if int8:
         nmu, nnu, nms, nvs = (tree_unflatten(t, leaves) for t, leaves in zip(

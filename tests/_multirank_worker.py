@@ -67,30 +67,38 @@ def run_case(case, mesh, data_dir):
                 raise AssertionError(f"step {step}: {k} differ")
 
     lengths = rows(blob["lengths"])
-    logits, cache, stats = fns.prefill(
-        local, {"tokens": rows(blob["tokens"]), "lengths": lengths}, cache,
-        **kw)
+    batch = {"tokens": rows(blob["tokens"]), "lengths": lengths}
+    dkw = {}
+    if "embeddings" in blob:         # the encoder-decoder
+        batch["embeddings"] = rows(blob["embeddings"])
+        dkw["enc_lengths"] = rows(blob["enc_lengths"])
+    logits, cache, stats = fns.prefill(local, batch, cache, **kw)
     held(0, logits, stats)
     for i, tok in enumerate(blob["decode_tokens"]):
         logits, cache, stats = fns.decode(local, rows(tok), cache,
-                                          lengths + i, **kw)
+                                          lengths + i, **kw, **dkw)
         held(i + 1, logits, stats)
-    for name, c in cache.items():
-        for leaf, t in c.items():
-            ref = sh.local_block(blob["cache"][name][leaf],
-                                 cspecs[name][leaf], pol)
-            if t.dtype == torch.int8:     # codes: within one of the rule
-                ok = (t.int() - ref.int()).abs().max() <= 1
-            else:
-                worst = max(worst, _err(t, ref))
-                ok = torch.allclose(t, ref, rtol=tol, atol=tol)
-            if not ok:
-                raise AssertionError(f"cache {name}/{leaf} differs: "
-                                     f"{_err(t, ref)}")
+    blocks = sh._zip_trees(lambda t, s: sh.local_block(t, s, pol),
+                           blob["cache"], cspecs)
+    pairs = []
+    sh._zip_trees(lambda t, r: pairs.append((t, r)), cache, blocks)
+    for j, (t, ref) in enumerate(pairs):
+        if t.shape != ref.shape:
+            raise AssertionError(f"cache leaf {j}: shape {tuple(t.shape)}, "
+                                 f"spec block {tuple(ref.shape)}")
+        if t.dtype == torch.int8:         # codes: within one of the rule
+            ok = (t.int() - ref.int()).abs().max() <= 1
+        else:
+            worst = max(worst, _err(t, ref))
+            ok = torch.allclose(t, ref, rtol=tol, atol=tol)
+        if not ok:
+            raise AssertionError(f"cache leaf {j} differs: {_err(t, ref)}")
     return worst
 
 
-def main():
+def main(run=run_case):
+    """Joins the job's world and runs ``run(case, mesh, data_dir)`` on
+    each case in order."""
     job = json.load(open(sys.argv[1]))
     rank = int(sys.argv[2])
     sys.path.insert(0, job["src"])
@@ -113,7 +121,7 @@ def main():
         try:
             results[case["name"]] = {
                 "ok": True, "msg": "",
-                "max_err": run_case(case, mesh, job["data"])}
+                "max_err": run(case, mesh, job["data"])}
         except Exception:               # noqa: BLE001 - reported per case
             results[case["name"]] = {"ok": False,
                                      "msg": traceback.format_exc()[-2000:],

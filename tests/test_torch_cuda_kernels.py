@@ -246,6 +246,9 @@ def test_moe_gmm_ragged_kernel(cuda, dtype, T, K, E, D, F):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("T,K,E,D,F", [
     (2048, 8, 128, 2048, 768), (2048, 8, 128, 768, 2048),   # training
+    # a rank's EP shard under expert_data_shard: half the experts (as many
+    # slots each), F cut in two
+    (2048, 4, 64, 2048, 384), (2048, 4, 64, 384, 2048),
     (64, 2, 8, 64, 40), (700, 8, 16, 128, 200),
     (3, 1, 4, 72, 130)])                    # F % 8 != 0: the CUDA cores
 def test_ragged_gmm_backward_kernel(cuda, dtype, T, K, E, D, F):
@@ -671,6 +674,7 @@ def test_moe_gmm_kernel(cuda, dtype, E, C, D, F):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("E,C,D,F", [
     (128, 160, 2048, 768), (128, 160, 768, 2048),   # training: 4 rows of 40
+    (64, 160, 2048, 384), (64, 160, 384, 2048),     # a rank's EP shard
     (16, 71, 256, 96), (5, 13, 37, 131)])           # odd C, D and F
 def test_moe_gmm_backward_kernel(cuda, dtype, E, C, D, F):
     """``moe_gmm``'s forward, dx (dy @ wᵀ) and dw (xᵀ @ dy) are three

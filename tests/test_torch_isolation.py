@@ -60,7 +60,11 @@ def test_no_source_file_imports_jax_or_the_reference():
                      r"(?!_torch)|import (msgpack|zstandard)|"
                      r"from (msgpack|zstandard))|"
                      r"import_module\(f?[\"']repro\.", re.M)
-    files = list(PORT.rglob("*.py")) + [SRC.parent / "chip_smoke.py"]
+    # the ranks of the multi-rank tests run the port alone, too
+    workers = sorted((SRC.parent / "tests").glob("_multirank*worker.py"))
+    assert len(workers) == 2
+    files = list(PORT.rglob("*.py")) + [SRC.parent / "chip_smoke.py"] + \
+        workers
     assert len(files) > 10
     for f in files:
         assert not bad.search(f.read_text()), f

@@ -15,18 +15,28 @@ logits and its cache shard within 1e-5 of the reference's single-device
   over ``data``, tokens gathered over ``data``; both dispatch modes;
 * B = 1, where ``kv_split_axes`` is (data, model): split-K over all 4
   ranks;
+* (1, 3): llama4 at 6 layers, each model rank holding one super-block's
+  shared expert while the 8 experts do not split over 3 (the shared
+  expert's parts summed on their own);
 * at (2, 2) only: the qwen3-8b smoke config, gemma2-2b (a window ring and
   softcaps), llama4 (a shared expert; at 4 layers its stack is cut over
   ``model``, with and without ``expert_data_shard``) and an int8 ring (the reference
   rounds int8 decode's weights to bf16, ROADMAP.md Queue C: logits at the
-  bf16 bar, codes within one of the 1/127 rule).
+  bf16 bar, codes within one of the 1/127 rule);
+* the other families: hymba (attention heads and mamba channels cut over
+  ``model``, the mamba state by channels) at (2, 2) and at (1, 4), where
+  each rank holds one query head, half a KV head's columns and a quarter
+  of the channels; xlstm-125m at (2, 2) (each block's weights gathered,
+  the states cut over the batch); seamless-m4t-large-v2 at (2, 2) (the
+  self and cross K/V cut by rows and slots, ``enc_lengths`` per block of
+  rows).
 
 Weights come from the reference's ``init(PRNGKey(0))``; the reference's
 outputs are computed here and passed to the ranks as tensors, and the
 ranks import neither ``jax`` nor the reference. Beside them, in this
 process: a policy over one rank changes no bit (the (1, 1) mesh, and
-split-K forced to 4 against the reference), and a policy over several
-ranks on xlstm, encdec, hybrid or ``loss_fn`` raises.
+split-K forced to 4 against the reference), and a policy's spec tree
+flattens in the params' leaf order.
 """
 import dataclasses
 import functools
@@ -83,6 +93,18 @@ CASES = {
     "llama4_4layers_2x2_eds": ("llama4_l4", (2, 2), dict(
         overrides={"expert_data_shard": True})),
     "qwen3moe_2x2_int8": ("qwen3moe_int8", (2, 2), {}),
+    # 6 layers on 3 model ranks: each holds one super-block's shared
+    # expert while 8 experts do not split over 3, so the shared expert's
+    # parts are summed apart from the routed experts'
+    "llama4_6layers_1x3_shared_apart": ("llama4_l6", (1, 3), {}),
+    "hymba_2x2": ("hymba", (2, 2), dict(
+        expect={"batch_axes": ["data"], "kv_split": 2})),
+    "hymba_1x4_heads_and_channels": ("hymba", (1, 4), dict(
+        expect={"kv_split": 4, "kv_split_axes": ["model"]})),
+    "xlstm_2x2": ("xlstm", (2, 2), dict(expect={"batch_axes": ["data"]})),
+    "seamless_2x2_cross_kv_cut": ("seamless", (2, 2), dict(
+        expect={"batch_axes": ["data"], "kv_split": 2,
+                "kv_split_axes": ["model"]})),
 }
 # data -> (arch, batch, kv_dtype, ragged, layers)
 DATA = {
@@ -93,8 +115,15 @@ DATA = {
     "gemma2": ("gemma2-2b", B, "bfloat16", True, 2),
     "llama4": ("llama4-maverick-400b-a17b", B, "bfloat16", True, 2),
     "llama4_l4": ("llama4-maverick-400b-a17b", B, "bfloat16", True, 4),
+    "llama4_l6": ("llama4-maverick-400b-a17b", B, "bfloat16", True, 6),
     "qwen3moe_int8": ("qwen3-moe-30b-a3b", B, "int8", True, 2),
+    # hymba's period is 3 layers (two local, one global): the smoke depth
+    "hymba": ("hymba-1.5b", B, "bfloat16", True, 3),
+    "xlstm": ("xlstm-125m", B, "bfloat16", True, 2),
+    "seamless": ("seamless-m4t-large-v2", B, "bfloat16", True, 2),
 }
+S_SRC = 24                       # seamless's encoder frames
+ENC_LENGTHS = np.array([24, 21, 24, 17], np.int32)
 
 
 def _jcfg(arch, layers=2):
@@ -108,6 +137,8 @@ def _tcfg(arch, layers=2):
 def _to_torch(tree):
     if isinstance(tree, dict):
         return {k: _to_torch(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to_torch(v) for v in tree]
     return torch.from_numpy(np.array(tree))
 
 
@@ -124,13 +155,19 @@ def _reference(name):
     lengths = LENGTHS[:b].copy()
     src = (np.arange(b) % 2).astype(np.int32)
     kw = dict(source_ids=jnp.asarray(src), n_sources=2)
+    batch = {"tokens": jnp.asarray(tokens), "lengths": jnp.asarray(lengths)}
+    dkw = {}
+    if cfg.family == "encdec":
+        emb = rng.normal(size=(b, S_SRC, cfg.d_model)).astype(np.float32)
+        batch["embeddings"] = jnp.asarray(emb)
+        dkw["enc_lengths"] = jnp.asarray(ENC_LENGTHS[:b])
     prefill = jax.jit(pin_dispatch_mode(
         lambda p, bt, c: fns.prefill(p, bt, c, **kw), lambda: ragged))
     decode = jax.jit(pin_dispatch_mode(
-        lambda p, t, c, n: fns.decode(p, t, c, n, **kw), lambda: ragged))
-    logits, cache, stats = prefill(
-        jp, {"tokens": jnp.asarray(tokens), "lengths": jnp.asarray(lengths)},
-        fns.init_cache(b, L, kv_dtype=kv_dtype))
+        lambda p, t, c, n: fns.decode(p, t, c, n, **kw, **dkw),
+        lambda: ragged))
+    logits, cache, stats = prefill(jp, batch,
+                                   fns.init_cache(b, L, kv_dtype=kv_dtype))
     out = {"logits": [logits], "stats": [stats], "decode_tokens": []}
     for i in range(N_DEC):
         tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)
@@ -141,6 +178,9 @@ def _reference(name):
         out["stats"].append(stats)
     blob = {k: [_to_torch(x) if x is not None else {} for x in v]
             for k, v in out.items()}
+    if cfg.family == "encdec":
+        blob["embeddings"] = torch.from_numpy(emb)
+        blob["enc_lengths"] = torch.from_numpy(ENC_LENGTHS[:b].copy())
     blob["stats"] = [{k: v for k, v in st.items()
                       if k in ("expert_counts", "source_expert")}
                      for st in blob["stats"]]
@@ -187,7 +227,7 @@ def rank_results(tmp_path_factory):
     for name in DATA:
         torch.save(_reference(name), tmp / f"{name}.pt")
     runs = {}
-    for shape in ((2, 2), (1, 4)):
+    for shape in ((2, 2), (1, 4), (1, 3)):
         cases = []
         for cname, (data, mesh_shape, extra) in CASES.items():
             if mesh_shape != shape:
@@ -278,19 +318,40 @@ def test_one_rank_split_k_matches_reference():
                            blob["stats"][i + 1]["expert_counts"])
 
 
-@pytest.mark.parametrize("arch,entry", [
-    ("xlstm-125m", "prefill"), ("xlstm-125m", "decode"),
-    ("seamless-m4t-large-v2", "prefill"), ("seamless-m4t-large-v2", "decode"),
-    ("hymba-1.5b", "prefill"), ("hymba-1.5b", "decode"),
-    ("qwen3-moe-30b-a3b", "loss"), ("xlstm-125m", "loss"),
-])
-def test_policy_over_ranks_raises_where_not_honoured(arch, entry):
-    cfg = get_smoke_config(arch)
-    pol = tsh.make_policy(cfg, ShapeConfig("cell", L, B, "decode"),
-                          make_debug_mesh(), "serve")
-    fns = build_model(cfg)
-    call = {"prefill": lambda: fns.prefill(None, {}, None, policy=pol),
-            "decode": lambda: fns.decode(None, None, None, None, policy=pol),
-            "loss": lambda: fns.loss(None, {}, policy=pol)}[entry]
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        call()
+def test_spec_tree_flattens_in_the_params_leaf_order():
+    """``flatten_specs`` walks a spec tree as ``tree_flatten`` walks the
+    params (dict keys sorted, lists in order), which the optimizer and
+    checkpoints pair them by."""
+    from repro_torch.bridge import tree_flatten
+    from repro_torch.models.api import param_specs_abstract
+    for arch in ("xlstm-125m", "llama4-maverick-400b-a17b"):
+        cfg = get_smoke_config(arch)
+        pol = tsh.make_policy(cfg, ShapeConfig("cell", L, B, "train"),
+                              make_debug_mesh(), "train")
+        abstract = param_specs_abstract(cfg)
+        specs = tsh.make_param_specs(abstract, cfg, pol)
+        flat = tsh.flatten_specs(specs)
+        leaves = tree_flatten(abstract)
+        assert len(flat) == len(leaves)
+        # a replicated leaf's spec is P(); a cut one has one entry a dim
+        assert all(len(s) in (0, t.dim()) for s, t in zip(flat, leaves))
+        assert sum(len(s) > 0 for s in flat) > len(flat) // 2
+
+
+def test_policy_gives_the_params_spec_tree():
+    """The models, the optimizer and the train step read the params' specs
+    from one place, the config the policy was made for: ``leaf_specs`` is
+    ``make_param_specs`` of the params in their leaf order, and a policy
+    refuses another config's params."""
+    from repro_torch.models.api import param_specs_abstract
+    cfg = get_smoke_config("qwen3-moe-30b-a3b")
+    pol = tsh.make_policy(cfg, ShapeConfig("cell", L, B, "train"),
+                          make_debug_mesh(), "train")
+    assert tsh.leaf_specs(pol) == tsh.flatten_specs(tsh.make_param_specs(
+        param_specs_abstract(cfg), cfg, pol))
+    assert tsh.param_specs(cfg, pol) is tsh.param_specs(None, pol)
+    with pytest.raises(ValueError, match="another config"):
+        tsh.param_specs(get_smoke_config("qwen3-8b"), pol)
+    one = tsh.make_policy(cfg, ShapeConfig("cell", L, B, "train"),
+                          Mesh((1, 1), ("data", "model")), "train")
+    assert tsh.leaf_specs(one) is None and tsh.leaf_specs(None) is None
