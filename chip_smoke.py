@@ -84,14 +84,13 @@
    next: qwen3-8b at full width and depth (36 layers) through
    ``serve_real_cluster`` over two paged engines on bf16 pages, on int8
    pages, and over two dense engines (8 requests of 256 to 1024 prompt
-   tokens, 32 new each); gemma3-12b (48 layers, 5 local layers of window
-   1024 to 1 global, hd 256) and gemma2-2b (26 layers, softcaps 50 and 30,
+   tokens, 32 new each); gemma3-12b (24 of its 48 layers, 5 local layers of
+   window 1024 to 1 global, hd 256) and gemma2-2b (26 layers, softcaps 50 and 30,
    hd 256) over two dense engines of 2048 tokens a slot (prompts of 900 to
    1400 tokens that overflow gemma3's 1024-slot rings, 64 new), where
    ``flash_decode`` takes the CUDA cores (2 of gemma3's requests, 16 new
    tokens each, are served again under the profiler); qwen1.5-32b at full
-   width and 32
-   of its 64 layers through ``build_model``'s entry points (8 prompts of
+   width and 16 of its 64 layers through ``build_model``'s entry points (8 prompts of
    1024 tokens, 32 decode steps) with a bf16 and an int8 cache, whose
    logits must meet the reference's int8 bar, then over two dense engines;
    and the four families' float32 twins, card against CPU, over dense
@@ -102,7 +101,7 @@
    int8 write at these families' shapes;
 11. the ``other_families`` phase, each family's weights freed before the
    next, through ``build_model``'s entry points: llava-next-34b at full
-   width and 30 of its 60 layers (prefill of 4 x 2880 stand-in patch
+   width and 15 of its 60 layers (prefill of 4 x 2880 stand-in patch
    embeddings, 32 decode steps, with a bf16 and an int8 cache held to each
    other at the reference's int8 bar, and a decode held to a prefill one
    row longer at the same bar; then 8 token requests over two dense
@@ -193,10 +192,23 @@
    phase holds the ragged GMM at the shapes those ranks launch (the
    parent checks that it held every one) and the expert GEMMs at a rank's
    EP shard of a (2, 2) mesh (64 of 128 experts, F 384 of 768);
-15. prints a ``kernels`` JSON line (all seven kernels; the train,
-   sharded and sharded_train phases' launches, and the sharded_train
-   ranks' summed, under ``launches_by_path``), then as its last line
-   ``{"ok": true, "device": {...}}``.
+15. the ``launch`` phase (ROADMAP Queue A item 11b, steps 3 to 7): the
+   abstract dry run of every cell of the (16, 16) and (2, 16, 16) meshes
+   in this process; then the script starts itself once more as rank 0 of
+   a ``fake`` world of 256 ranks, which executes qwen3-moe-30b-a3b's
+   ``decode_32k`` cell at 48 layers under the counters (its args exactly
+   their spec bytes; FLOPs, bytes, collectives and the peak printed; the
+   ragged GMM, ``source_expert_count`` and split-K ``flash_decode``
+   launched on the tensor cores), runs ``perf_run``'s three cells (the
+   reference's final variant of each and ``decode_32k``'s padded one,
+   counted; the two decode steps timed at 48 layers), sweeps
+   the roofline of its four shapes, and counts three float32 cells at
+   smoke widths on the card and on the CPU, which must agree (collective
+   bytes and kernel calls exactly, FLOPs and bytes within stated bars);
+16. prints a ``kernels`` JSON line (all seven kernels; the train,
+   sharded, sharded_train and launch phases' launches, and the
+   sharded_train ranks' summed, under ``launches_by_path``), then as its
+   last line ``{"ok": true, "device": {...}}``.
 
 Adopting a placement moves the experts' weights in place; each serve
 leaves the caller's weights as they were.
@@ -206,7 +218,8 @@ The kernel launch counters are set to 0 just before each serve of steps 4,
 scenario slice of step 8, of each full-width training run of step 12 and
 of the policy's run and each split decode step of step 13, of each
 world-1 train run of step 14 and of the two ranks' train steps and hymba
-decode steps there, and read just after;
+decode steps there, and of the executed cell of step 15, and read just
+after;
 each serve fails if a kernel of its path was not launched, or if a bf16
 launch of an expert GEMM or of a decode kernel at full width took the CUDA
 cores instead of the tensor cores (at hd 256, which
@@ -257,6 +270,8 @@ def parse_args():
                     help=argparse.SUPPRESS)
     ap.add_argument("--sharded-train-job", default=None,
                     help=argparse.SUPPRESS)
+    # rank 0 of the launch phase's fake world: the path of its records
+    ap.add_argument("--launch-rank", default=None, help=argparse.SUPPRESS)
     return ap.parse_args()
 
 
@@ -415,6 +430,7 @@ def check_paged_decode(timer, dtype, int8_pages=False, long_ctx=False,
     from repro_torch.kernels.decode_route import row_rel_err, tc_eligible
     from repro_torch.kernels.kv_pack import pack_kv_plain
     from repro_torch.kernels.paged_decode import (paged_decode,
+                                                  paged_decode_cost,
                                                   paged_decode_plain)
     g = torch.Generator(device="cuda").manual_seed(1)
     B, hd, ps = 8, 128, 16
@@ -451,13 +467,9 @@ def check_paged_decode(timer, dtype, int8_pages=False, long_ctx=False,
         raise AssertionError("paged_decode: non-finite output or a ctx=0 "
                              "lane that is not exactly zero")
     del ref
-    item = q.element_size()
-    live = sum(ctx)
-    # K and V of the live tokens (and their scales on int8 pages)
-    row_bytes = hd * kp.element_size() + (4 if int8_pages else 0)
-    nbytes = 2 * q.numel() * item + live * Hkv * 2 * row_bytes \
-        + bt.numel() * 4 + B * 4
-    ops = 4.0 * live * Hq * hd
+    ops, nbytes = paged_decode_cost(B, Hq, Hkv, hd, NB, sum(ctx),
+                                    q.element_size(), kp.element_size(),
+                                    int8_pages)
     pages = "int8 pages + f32 scales" if int8_pages else "pages in q's type"
     ctx_s = f"ctx={ctx}" if not long_ctx else \
         f"long context: ctx={ctx}, NB={NB}, pool of {P} pages"
@@ -492,6 +504,7 @@ def check_gmm(timer, dtype, T, D, F, which, K=8, dx=False, E=128):
     plain f32 formulation (dy not rounded); the timed call is the
     kernel's, after the rounding."""
     from repro_torch.kernels.moe_gmm import (moe_gmm_ragged,
+                                             moe_gmm_ragged_cost,
                                              moe_gmm_ragged_plain)
     g = torch.Generator(device="cuda").manual_seed(2)
     disp = dispatch_layout(T, K, E, D, dtype, g)
@@ -513,13 +526,12 @@ def check_gmm(timer, dtype, T, D, F, which, K=8, dx=False, E=128):
     ref = moe_gmm_ragged_plain(x_plain, w, *meta, n_block=nb)
     torch.cuda.synchronize()
     err = max_err(out, ref)
-    item = x.element_size()
     rows = int(disp.group_sizes.sum())
     hit = int((disp.group_sizes > 0).sum())
     Np = x.shape[0]
-    nbytes = rows * Din * item + hit * Din * Dout * item + Np * Dout * 4 \
-        + 4 * (disp.tile_expert.numel() + 2 * E + 1)
-    ops = 2.0 * rows * Din * Dout
+    ops, nbytes = moe_gmm_ragged_cost(rows, hit, Np, Din, Dout, E,
+                                      disp.tile_expert.numel(),
+                                      x.element_size())
     lib = {"library_ms": None}
     if dtype == torch.bfloat16 and hasattr(torch, "_grouped_mm"):
         offs = disp.padded_offsets[1:].contiguous()
@@ -550,6 +562,7 @@ def check_flash_decode(timer, dtype, long_ctx=False, Hq=32, Hkv=4, hd=128,
     import torch.nn.functional as F
     from repro_torch.kernels.decode_route import row_rel_err, tc_eligible
     from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_cost,
                                                   flash_decode_plain)
     from repro_torch.kernels.kv_pack import pack_kv_plain
     from repro_torch.models.attention import ring_positions
@@ -596,12 +609,9 @@ def check_flash_decode(timer, dtype, long_ctx=False, Hq=32, Hkv=4, hd=128,
     if window:
         valid &= k_pos > q_pos[:, None] - window
     n_valid = int(valid.sum())
-    item = q.element_size()
-    # K and V of the valid slots (codes and scales on an int8 cache)
-    row_bytes = hd * kc.element_size() + (4 if int8 else 0)
-    nbytes = 2 * q.numel() * item + n_valid * Hkv * 2 * row_bytes \
-        + k_pos.numel() * 4 + B * 4
-    ops = 4.0 * n_valid * Hq * hd
+    ops, nbytes = flash_decode_cost(B, Hq, Hkv, hd, L, n_valid,
+                                    q.element_size(), kc.element_size(),
+                                    int8)
     lib = lib_dev = None
     if not (cap or int8):
         # SDPA on the same cache, heads-first copies and the boolean mask
@@ -649,7 +659,8 @@ def check_pack_ring(timer, dtype, B, S, L, Hkv, which):
     step of 8 rows at assorted positions (two past the ring's end), or a
     prompt of S tokens written at slots [0, S)."""
     from repro_torch.kernels.kv_pack import (pack_kv_into_pages_plain,
-                                             pack_kv_into_ring)
+                                             pack_kv_into_ring,
+                                             pack_kv_write_cost)
     g = torch.Generator(device="cuda").manual_seed(10)
     hd = 128
     if S == 1:
@@ -675,7 +686,8 @@ def check_pack_ring(timer, dtype, B, S, L, Hkv, which):
         raise AssertionError(f"pack_kv_into_ring [{dtype}] {which}: codes "
                              "or scales differ from the plain twin")
     n = B * S * Hkv
-    nbytes = 2 * n * (hd * k.element_size() + hd + 4) + 4 * positions.numel()
+    ops, nbytes = pack_kv_write_cost(n, n, hd, k.element_size(),
+                                     4 * positions.numel())
     run = lambda: pack_kv_into_ring(k, v, *caches, positions)  # noqa: E731
     return {"shape": f"{which}: K and V ({B}, {S}, {Hkv}, {hd}) into an "
                      f"int8 ring cache of {L} slots (one launch)",
@@ -683,12 +695,13 @@ def check_pack_ring(timer, dtype, B, S, L, Hkv, which):
             **device_times(timer, run, ("pack_kv_kernel",), 1),
             "plain_ms": timer(lambda: pack_kv_into_pages_plain(
                 k, v, *plain, bt, positions, valid)),
-            "bound": bound_ms(nbytes, 2 * 4.0 * n * hd, "float32"),
+            "bound": bound_ms(nbytes, ops, "float32"),
             "library_ms": None}
 
 
 def check_padded_gmm(timer, dtype, E, C, D, F, which):
-    from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_plain
+    from repro_torch.kernels.moe_gmm import (moe_gmm, moe_gmm_cost,
+                                             moe_gmm_plain)
     g = torch.Generator(device="cuda").manual_seed(7)
     x = torch.randn(E, C, D, generator=g, device="cuda").to(dtype)
     w = (torch.randn(E, D, F, generator=g, device="cuda")
@@ -699,8 +712,7 @@ def check_padded_gmm(timer, dtype, E, C, D, F, which):
     ref = moe_gmm_plain(x, w)
     torch.cuda.synchronize()
     err = max_err(out, ref)
-    item = x.element_size()
-    nbytes = (x.numel() + w.numel()) * item + out.numel() * 4
+    ops, nbytes = moe_gmm_cost(E, C, D, F, x.element_size())
     # the library yardstick: one torch.bmm in the input type (its output is
     # rounded to that type)
     run = lambda: moe_gmm(x, w)  # noqa: E731
@@ -708,8 +720,7 @@ def check_padded_gmm(timer, dtype, E, C, D, F, which):
             "err": err, "ms": timer(run),
             **device_times(timer, run, ("gmm_",), 1),
             "plain_ms": timer(lambda: moe_gmm_plain(x, w)),
-            "bound": bound_ms(nbytes, 2.0 * E * C * D * F,
-                              str(dtype).split(".")[1]),
+            "bound": bound_ms(nbytes, ops, str(dtype).split(".")[1]),
             **library_times(timer, lambda: torch.bmm(x, w)), "route": route}
 
 
@@ -719,7 +730,8 @@ def check_stats(timer, T, K):
     prefill group of 4 lanes x 512 tokens at top-8 is 16384 slots) two
     memsets and the grid; its device time counts the memsets."""
     from repro_torch.kernels.source_expert_count import (
-        SINGLE_BLOCK_SLOTS, source_expert_count, source_expert_count_plain)
+        SINGLE_BLOCK_SLOTS, source_expert_count, source_expert_count_cost,
+        source_expert_count_plain)
     g = torch.Generator(device="cuda").manual_seed(3)
     E, S = 128, 2
     ids = torch.randint(-1, E, (T, K), generator=g, device="cuda",
@@ -741,7 +753,7 @@ def check_stats(timer, T, K):
     lib_ok = torch.equal(lib[1:].int(), a) and torch.equal(lib.sum(0).int(), b)
     if not lib_ok:
         log("library: torch.bincount does not reproduce (B, A); not timed")
-    nbytes = 4 * (ids.numel() + src.numel() + E + S * E)
+    ops, nbytes = source_expert_count_cost(T, K, E, S)
     run = lambda: source_expert_count(ids, src, **kw)  # noqa: E731
     one_block = T * K <= SINGLE_BLOCK_SLOTS
     path = (("source_expert_count_block",), 1) if one_block \
@@ -752,14 +764,15 @@ def check_stats(timer, T, K):
             **device_times(timer, run, *path),
             "plain_ms": timer(lambda: source_expert_count_plain(ids, src,
                                                                 **kw)),
-            "bound": bound_ms(nbytes, 2.0 * ids.numel(), "int32"),
+            "bound": bound_ms(nbytes, ops, "int32"),
             **(library_times(timer, lambda: torch.bincount(
                 keys, minlength=(S + 1) * E)) if lib_ok
                else {"library_ms": None})}
 
 
 def check_pack(timer, dtype, shape, which):
-    from repro_torch.kernels.kv_pack import pack_kv, pack_kv_plain
+    from repro_torch.kernels.kv_pack import (pack_kv, pack_kv_cost,
+                                             pack_kv_plain)
     g = torch.Generator(device="cuda").manual_seed(4)
     x = (torch.randn(shape, generator=g, device="cuda")
          * torch.rand(shape[:-1] + (1,), generator=g, device="cuda")
@@ -770,15 +783,14 @@ def check_pack(timer, dtype, shape, which):
     if not (torch.equal(q, rq) and torch.equal(s, rs)):
         raise AssertionError(f"pack_kv [{dtype}] {shape}: codes or scales "
                              "differ from the plain version")
-    rows, hd = s.numel(), shape[-1]
-    nbytes = rows * hd * x.element_size() + rows * hd + rows * 4
+    ops, nbytes = pack_kv_cost(s.numel(), shape[-1], x.element_size())
     # |x|, max, one division and one conversion per value, at the f32 rate
     run = lambda: pack_kv(x)  # noqa: E731
     return {"shape": f"{which}: {tuple(shape)} (tokens, heads, hd)",
             "err": 0.0, "ms": timer(run),
             **device_times(timer, run, ("pack_kv_kernel",), 1),
             "plain_ms": timer(lambda: pack_kv_plain(x)),
-            "bound": bound_ms(nbytes, 4.0 * rows * hd, "float32"),
+            "bound": bound_ms(nbytes, ops, "float32"),
             "library_ms": None}
 
 
@@ -791,7 +803,8 @@ def check_pack_paged(timer, dtype, B, S, which, Hkv=4):
     one 512-token chunk starting mid-page, its last 12 rows padding. KV
     heads: qwen3's 4, or llama4's 8."""
     from repro_torch.kernels.kv_pack import (pack_kv_into_pages,
-                                             pack_kv_into_pages_plain)
+                                             pack_kv_into_pages_plain,
+                                             pack_kv_write_cost)
     g = torch.Generator(device="cuda").manual_seed(8)
     hd, ps, NB = 128, 16, 64
     P = B * NB + 1
@@ -825,8 +838,9 @@ def check_pack_paged(timer, dtype, B, S, which, Hkv=4):
                              "or scales differ from the plain twin")
     n, n_valid = B * S * Hkv, int(valid.sum()) * Hkv
     # K and V read, codes and scales of the valid rows written, the slots
-    nbytes = 2 * (n * hd * k.element_size() + n_valid * (hd + 4)) \
-        + 4 * (bt.numel() + positions.numel()) + valid.numel()
+    ops, nbytes = pack_kv_write_cost(
+        n, n_valid, hd, k.element_size(),
+        4 * (bt.numel() + positions.numel()) + valid.numel())
     run = lambda: pack_kv_into_pages(k, v, *pools, *args)  # noqa: E731
     return {"shape": f"{which}: K and V ({B}, {S}, {Hkv}, {hd}) into int8 "
                      f"pages of {ps}, {int(valid.sum())} valid rows "
@@ -835,12 +849,13 @@ def check_pack_paged(timer, dtype, B, S, which, Hkv=4):
             **device_times(timer, run, ("pack_kv_kernel",), 1),
             "plain_ms": timer(lambda: pack_kv_into_pages_plain(
                 k, v, *plain, *args)),
-            "bound": bound_ms(nbytes, 2 * 4.0 * n * hd, "float32"),
+            "bound": bound_ms(nbytes, ops, "float32"),
             "library_ms": None}
 
 
 def check_unpack(timer, dtype, shape):
-    from repro_torch.kernels.kv_pack import unpack_kv, unpack_kv_plain
+    from repro_torch.kernels.kv_pack import (unpack_kv, unpack_kv_cost,
+                                             unpack_kv_plain)
     g = torch.Generator(device="cuda").manual_seed(5)
     q = torch.randint(-127, 128, shape, generator=g, device="cuda",
                       dtype=torch.int8)
@@ -859,14 +874,13 @@ def check_unpack(timer, dtype, shape):
     if not lib_ok:
         log(f"library: torch.mul into {dtype} does not reproduce unpack_kv; "
             "not timed")
-    n = q.numel()
-    nbytes = n + s.numel() * 4 + n * out.element_size()
+    ops, nbytes = unpack_kv_cost(q.numel(), s.numel(), out.element_size())
     run = lambda: unpack_kv(q, s, dtype)  # noqa: E731
     return {"shape": f"prefill gather: {tuple(shape)} (B, L, Hkv, hd)",
             "err": 0.0, "ms": timer(run),
             **device_times(timer, run, ("unpack_kv_kernel",), 1),
             "plain_ms": timer(lambda: unpack_kv_plain(q, s, dtype)),
-            "bound": bound_ms(nbytes, 2.0 * n, "float32"),
+            "bound": bound_ms(nbytes, ops, "float32"),
             **(library_times(timer, lambda: torch.mul(q, s[..., None],
                                                       out=buf))
                if lib_ok else {"library_ms": None})}
@@ -1132,6 +1146,7 @@ def check_flash_decode_shard(timer, dtype, L, n_split):
     import torch.nn.functional as F
     from repro_torch.kernels.decode_route import row_rel_err, tc_eligible
     from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_cost,
                                                   flash_decode_plain)
     from repro_torch.models.attention import ring_positions
     g = torch.Generator(device="cuda").manual_seed(6)
@@ -1158,10 +1173,9 @@ def check_flash_decode_shard(timer, dtype, L, n_split):
     rel = row_rel_err(out, ref)
     valid = (k_pos >= 0) & (k_pos <= q_pos[:, None])
     n_valid = int(valid.sum())
-    item = q.element_size()
-    nbytes = q.numel() * item + n_valid * Hkv * 2 * hd * item \
-        + k_pos.numel() * 4 + B * 4 + out.numel() * 4 + lse.numel() * 4
-    ops = 4.0 * n_valid * Hq * hd
+    ops, nbytes = flash_decode_cost(B, Hq, Hkv, hd, Ls, n_valid,
+                                    q.element_size(), ks.element_size(),
+                                    return_lse=True)
     q4 = q[:, :, None].contiguous()
     k4, v4 = (t.transpose(1, 2).contiguous() for t in (ks, vs))
     mask = valid[:, None, None, :]
@@ -2286,8 +2300,10 @@ def scenario_phase(args, cfg, params, counters):
         f"(the weights, moved in place, with the prefetch's staged rows "
         f"beside them)")
 
+    from concurrent.futures import ThreadPoolExecutor
     env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
-    for flags in (("--real", "--paged"), ("--real",)):
+
+    def cli(flags):                 # both at once: mostly start-up time
         t0 = time.perf_counter()
         out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
                               *flags], env=env, cwd=HERE, capture_output=True,
@@ -2300,6 +2316,11 @@ def scenario_phase(args, cfg, params, counters):
         log(f"cli: python -m repro_torch.launch.serve {' '.join(flags)} on "
             f"the card: exit 0 in {time.perf_counter() - t0:.1f} s, "
             f"{served[0]}")
+
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        for job in [pool.submit(cli, flags)
+                    for flags in (("--real", "--paged"), ("--real",))]:
+            job.result()
     twin = reduced(get_smoke_config("qwen3-moe-30b-a3b"), dtype="float32")
     for mode in ("shared_prefix", "chaos"):
         serve_moe_paged.main(**{mode: True}, device="cuda", cfg=twin)
@@ -2483,6 +2504,9 @@ def llama4_serve_phase(args, counters):
 
 
 # ------------------------------------------------------------ dense families
+# depths of the families cut for the smoke's time (widths unchanged):
+# gemma3-12b 24 of 48 layers, qwen1.5-32b 16 of 64, llava-next-34b 15 of 60
+GEMMA3_LAYERS, QWEN15_LAYERS, LLAVA_LAYERS = 24, 16, 15
 DENSE_PAGED = dict(page_size=16, n_pages=1024, max_blocks_per_req=72,
                    max_batch=8, token_budget=512,
                    chunk_buckets=(64, 128, 256, 512))
@@ -2677,11 +2701,11 @@ def dense_families_phase(args, counters):
     """The dense families at full width on the card, each family's weights
     freed before the next: qwen3-8b (36 layers) through serve_real_cluster
     over two paged engines on bf16 pages, then on int8 pages, then over two
-    dense engines; gemma3-12b (48 layers, 5 local layers of window 1024 to
-    1 global, hd 256) and gemma2-2b (26 layers, softcaps 50 and 30, hd 256)
+    dense engines; gemma3-12b (24 of its 48 layers, 5 local layers of
+    window 1024 to 1 global, hd 256) and gemma2-2b (26 layers, softcaps 50 and 30, hd 256)
     over two dense engines of 2048 tokens a slot, where ``flash_decode``
     takes the CUDA cores (half of gemma3's serve again, profiled);
-    qwen1.5-32b at full width and 32 of its 64 layers
+    qwen1.5-32b at full width and 16 of its 64 layers
     through ``build_model``'s entry points with bf16 and int8 caches, then
     over two dense engines; then the float32 twins. Returns the phase's
     summed (launches, tensor-core launches)."""
@@ -2723,6 +2747,8 @@ def dense_families_phase(args, counters):
 
     for arch in ("gemma3-12b", "gemma2-2b"):
         cfg = get_config(arch)
+        if arch == "gemma3-12b":     # 4 of its 8 periods: the smoke's time
+            cfg = reduced(cfg, n_layers=GEMMA3_LAYERS)
         params = init_family(cfg, args.seed, arch)
 
         def gemma_reqs(n=8, new=64):
@@ -2756,7 +2782,7 @@ def dense_families_phase(args, counters):
         free()
 
     full = get_config("qwen1.5-32b")
-    cfg = reduced(full, n_layers=32)
+    cfg = reduced(full, n_layers=QWEN15_LAYERS)
     full_gib = full.param_count() * 2 / 2**30
     log(f"dense_families: qwen1.5-32b: reduced n_layers {full.n_layers}→"
         f"{cfg.n_layers} (width unchanged; {full_gib:.1f} GiB of bf16 "
@@ -3087,7 +3113,7 @@ def other_families_twins():
 
 def other_families_phase(args, counters):
     """The other four families at full width on the card, each family's
-    weights freed before the next: llava-next-34b at 30 of its 60 layers
+    weights freed before the next: llava-next-34b at 15 of its 60 layers
     (entry points from patch embeddings with bf16 and int8 caches, then two
     dense engines); hymba-1.5b (two dense engines of 2048 tokens a slot,
     prompts that overflow the 1024-slot rings, then the entry points);
@@ -3114,7 +3140,7 @@ def other_families_phase(args, counters):
                 max_len=max_len)[:3], needed, mains=needed, phase=OF))
 
     full = get_config("llava-next-34b")
-    cfg = reduced(full, n_layers=30)
+    cfg = reduced(full, n_layers=LLAVA_LAYERS)
     log(f"{OF}: llava-next-34b: reduced n_layers {full.n_layers}→"
         f"{cfg.n_layers} (width unchanged; "
         f"{full.param_count() * 2 / 2**30:.1f} GiB of bf16 weights at full "
@@ -3340,8 +3366,10 @@ def train_resume(args):
 
 def train_subprocesses():
     """The CLI (a checkpoint, then a resume from it), quickstart and the
-    fault-tolerance demo as a user runs them, on the card."""
+    fault-tolerance demo as a user runs them, on the card: the three at
+    once (each process spends most of its time starting up)."""
     import tempfile
+    from concurrent.futures import ThreadPoolExecutor
     env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
 
     def run(args, expect):
@@ -3357,16 +3385,23 @@ def train_subprocesses():
         log(f"{TR}: python -m {' '.join(args)} on the card: exit 0 in "
             f"{time.perf_counter() - t0:.1f} s: {line.strip()}")
 
-    with tempfile.TemporaryDirectory() as d:
-        ck = ["--checkpoint", os.path.join(d, "ck"), "--checkpoint-every",
-              "2"]
-        run(["repro_torch.launch.train", "--steps", "4", *ck],
-            "checkpointed at step 4")
-        run(["repro_torch.launch.train", "--steps", "6", "--resume", *ck],
-            "resumed from step 4")
-    run(["repro_torch.examples.quickstart"], "generated token ids")
-    run(["repro_torch.examples.fault_tolerance_demo"],
-        "bit-exact continuation: True")
+    def cli():
+        with tempfile.TemporaryDirectory() as d:
+            ck = ["--checkpoint", os.path.join(d, "ck"),
+                  "--checkpoint-every", "2"]
+            run(["repro_torch.launch.train", "--steps", "4", *ck],
+                "checkpointed at step 4")
+            run(["repro_torch.launch.train", "--steps", "6", "--resume",
+                 *ck], "resumed from step 4")
+
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        jobs = [pool.submit(cli),
+                pool.submit(run, ["repro_torch.examples.quickstart"],
+                            "generated token ids"),
+                pool.submit(run, ["repro_torch.examples.fault_tolerance_demo"],
+                            "bit-exact continuation: True")]
+        for job in jobs:
+            job.result()
 
 
 def train_phase(args, counters):
@@ -4901,12 +4936,233 @@ def sharded_train_rank(args) -> int:
     return 0
 
 
+LA = "launch"
+LA_DIR = os.path.join(HERE, "build", "launch")      # gitignored
+LA_ARCH, LA_SHAPE = "qwen3-moe-30b-a3b", "decode_32k"
+LA_ITERS = 3                      # perf_run's timed steps a depth
+# perf_run's variants the phase runs: the reference's final variant of each
+# cell (ragged), and decode_32k's padded one. A decode step is timed at full
+# depth; on the card rank 0's step takes about 2 to 3 s a layer at
+# prefill_32k (host-bound in the plain attention's block loop) and about
+# 5 s a super-block of two layers at llama4's train_4k, so those two cells
+# are counted, not timed, here: `python -m repro_torch.launch.perf_run`
+# times every variant
+LA_SKIP = (("qwen3-moe-30b-a3b", "prefill_32k", "v0-v3_padded"),
+           ("llama4-maverick-400b-a17b", "train_4k", "v0-v2_padded"))
+LA_UNTIMED = (("qwen3-moe-30b-a3b", "prefill_32k"),
+              ("llama4-maverick-400b-a17b", "train_4k"))
+# the float32 cells counted on the card and on the CPU: (kind, S, B, the
+# bar on FLOPs). Collective bytes and each kernel's count must be equal,
+# bytes within 1e-3: the CPU also runs ``one_hot``'s range checks (a min
+# and a max over the expert ids, each MoE layer), which the card skips. In
+# training some slots route differently where two experts' float32 scores
+# tie to the last bit (the card's and the CPU's products sum in other
+# orders), which moves the ragged GMM's rows and its dw products: FLOPs
+# within 1e-2 there, equal elsewhere
+LA_TWINS = (("decode", 64, 32, 0.0), ("prefill", 64, 32, 0.0),
+            ("train", 32, 32, 1e-2))
+LA_TWIN_BYTES = 1e-3
+
+
+def launch_phase(args):
+    """The launch tooling (ROADMAP Queue A item 11b, steps 3 to 7).
+
+    1. The abstract dry run (``launch/dryrun.py``, in this process, on the
+       CPU): every cell of the single-pod (16, 16) and multi-pod (2, 16,
+       16) meshes built, every spec dividing what it cuts; cells OK and
+       SKIP and how many fit 80 GiB a rank.
+    2. The script starts itself once more (``--launch-rank``), as rank 0 of
+       a ``fake`` world of 256 ranks (``launch/mesh.py::make_fake_mesh``;
+       a process holds one world): see :func:`launch_rank`. This process
+       checks what it wrote: the executed qwen3-moe-30b-a3b ``decode_32k``
+       cell at 48 layers holds args of exactly their spec bytes, finite
+       outputs, and launched the ragged GMM, ``source_expert_count`` and
+       split-K ``flash_decode``, the GMM and the decode kernel on the
+       tensor cores; the roofline sweep of its four shapes
+       (``long_500k`` skipped) and ``perf_run``'s three cells ran, each
+       timed but for ``LA_UNTIMED``; and each float32 twin cell counted the
+       same collective bytes and kernel calls on the card as on the CPU,
+       FLOPs and bytes within ``LA_TWINS``' bars.
+    Returns the launches of the executed cell's run (and those on the
+    tensor cores)."""
+    import io
+    from repro_torch.configs import SHAPES, list_archs
+    from repro_torch.launch import dryrun
+    os.makedirs(LA_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    for multi_pod in (False, True):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            recs = [dryrun.run_cell(a, s.name, multi_pod)
+                    for a in list_archs() for s in SHAPES]
+        ok = [r for r in recs if r["status"] == "OK"]
+        fits = sum(r["fits_card"] for r in ok)
+        big = max(ok, key=lambda r: r["memory"]["argument_bytes"])
+        log(f"{LA}: abstract dry run on {dryrun.mesh_name(multi_pod, False)}"
+            f": {len(ok)} OK, {len(recs) - len(ok)} SKIP, {fits} of "
+            f"{len(ok)} fit 80 GiB a rank; largest {big['arch']} x "
+            f"{big['shape']}, {big['memory']['argument_bytes'] / 2 ** 30:.3f}"
+            f" GiB of args a rank")
+    log(f"{LA}: abstract dry runs took {time.perf_counter() - t0:.1f} s")
+    path = os.path.join(LA_DIR, "result.json")
+    if os.path.exists(path):
+        os.remove(path)
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    t1 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--launch-rank", path, "--seed", str(args.seed)],
+                          env=env, cwd=HERE, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True, timeout=600)
+    for line in proc.stdout.splitlines():
+        if "USDT" not in line and "Warning" not in line:
+            log(f"{LA}: rank 0: {line}")
+    if proc.returncode:
+        raise AssertionError(f"{LA}: rank 0 exited {proc.returncode}")
+    with open(path) as f:
+        res = json.load(f)
+    rec = res["decode"]
+    mem = rec["memory"]
+    if mem["resident_arg_bytes"] != mem["argument_bytes"]:
+        raise AssertionError(f"{LA}: args hold {mem['resident_arg_bytes']} "
+                             f"bytes, their specs {mem['argument_bytes']}")
+    launches = {k: v for k, v in rec["launches"].items() if ":" not in k}
+    tc = {k[:-3]: v for k, v in rec["launches"].items() if k.endswith(":tc")}
+    for name in ("moe_gmm_ragged", "source_expert_count", "flash_decode"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{LA}: {name} was not launched")
+    check_routes(LA, launches, tc, ("moe_gmm_ragged", "flash_decode"))
+    roof = {r["shape"]: r for r in res["roofline"]}
+    if any("error" in r for r in res["roofline"]) or \
+            roof["long_500k"]["skip"] is None:
+        raise AssertionError(f"{LA}: the roofline sweep failed")
+    d32 = roof[LA_SHAPE]
+    for key, full in (("flops_per_chip", rec["flops"]),
+                      ("bytes_per_chip", rec["bytes_accessed"]),
+                      ("collective_bytes_per_chip",
+                       rec["collective_bytes"])):
+        log(f"{LA}: {LA_SHAPE} {key}: extrapolated from 1 and 2 layers "
+            f"{d32[key]:.6g}, counted at 48 layers {full:.6g} "
+            f"({d32[key] / full - 1:+.3%})")
+    if len(res["perf"]) != 6 - len(LA_SKIP) or any(
+            (d["step_ms"] is None) != ((d["arch"], d["shape"]) in LA_UNTIMED)
+            for d in res["perf"]):
+        raise AssertionError(f"{LA}: perf_run did not time its variants")
+    for t in res["twins"]:
+        if not t["equal"]:
+            raise AssertionError(f"{LA}: the float32 {t['kind']} cell's "
+                                 f"counts on the card and the CPU differ "
+                                 f"past their bars: {t}")
+    log(f"{LA}: rank 0 took {time.perf_counter() - t1:.1f} s; the "
+        f"executed cell launched {launches} ({_card()})")
+    return launches, tc
+
+
+def launch_rank(args) -> int:
+    """Rank 0 of a fake world of the (16, 16) mesh, started by
+    :func:`launch_phase`; writes its records to the path given.
+
+    1. ``dryrun.run_cell`` executes qwen3-moe-30b-a3b ``decode_32k`` at 48
+       layers under the counters: FLOPs, bytes, collectives, the args'
+       bytes against their specs, the peak.
+    2. ``perf_run.run_variant``: the three cells' variants (but
+       ``LA_SKIP``), counted at 1 and 2 super-blocks; the decode cells'
+       steps timed at 48 layers (``LA_ITERS`` after a warm-up).
+    3. The roofline of its four shapes: ``roofline_run.sweep`` for
+       ``train_4k`` and ``long_500k``; ``prefill_32k`` and
+       ``decode_32k`` are the cells of perf_run's ragged variants (the
+       same ``roofline_cell`` call), not counted twice.
+    4. The float32 smoke config of qwen3-moe (``LA_TWINS``) counted on the
+       CPU and on the card from the same drawn args."""
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    from torch.utils._pytree import tree_map
+    from repro_torch.configs import ShapeConfig, get_smoke_config, reduced
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, perf_run, roofline_run
+    from repro_torch.launch.cells import build_cell, materialize_cell
+    from repro_torch.launch.mesh import make_fake_mesh
+    from repro_torch.launch.roofline import count_live
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ops.build()
+    mesh = make_fake_mesh((16, 16), ("data", "model"), "cuda")
+    res = {}
+    t0 = time.perf_counter()
+    res["decode"] = dryrun.run_cell(LA_ARCH, LA_SHAPE, mesh=mesh,
+                                    device="cuda", seed=args.seed)
+    mem = res["decode"]["memory"]
+    used = {k: v for k, v in res["decode"]["collectives"].items()
+            if v["count"]}
+    log(f"decode_32k executed in {time.perf_counter() - t0:.1f} s: peak "
+        f"{(mem['argument_bytes'] + mem['temp_bytes']) / 2 ** 30:.3f} GiB "
+        f"(args {mem['argument_bytes'] / 2 ** 30:.3f}, temp "
+        f"{mem['temp_bytes'] / 2 ** 30:.3f}); collectives {used}; "
+        f"kernels {res['decode']['kernels']}")
+    torch.cuda.empty_cache()
+    res["perf"] = []
+    for (arch, shape), variants in perf_run.CELLS.items():
+        prev = None
+        for name, ragged, overrides in variants:
+            if (arch, shape, name) in LA_SKIP:
+                continue
+            t0 = time.perf_counter()
+            d = perf_run.run_variant(
+                arch, shape, name, ragged, overrides, mesh, device="cuda",
+                iters=LA_ITERS, seed=args.seed,
+                timed=(arch, shape) not in LA_UNTIMED)
+            log(f"perf_run {arch} x {shape}: {perf_run.line(d, prev)} "
+                f"({time.perf_counter() - t0:.1f} s)")
+            res["perf"].append(d)
+            prev = d
+            torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res["roofline"] = roofline_run.sweep(
+        mesh, "pod16x16", [LA_ARCH], ["train_4k", "long_500k"],
+        device="cuda", seed=args.seed) + [
+        d for d in res["perf"] if d["arch"] == LA_ARCH and d["ragged"]]
+    log(f"roofline sweep of train_4k and long_500k took "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    cfg = reduced(get_smoke_config(LA_ARCH), dtype="float32")
+    res["twins"] = []
+    for kind, S, B, flops_bar in LA_TWINS:
+        cell = build_cell(cfg, ShapeConfig(f"twin_{kind}", S, B, kind), mesh)
+        live = materialize_cell(
+            cell, mesh, generator=torch.Generator().manual_seed(args.seed),
+            device="cpu")
+        card = count_live(live._replace(args=tree_map(
+            lambda t: t.cuda() if isinstance(t, torch.Tensor) else t,
+            live.args)))
+        cpu = count_live(live)
+        keys = ("flops", "bytes", "collective_bytes")
+        t = {"kind": kind, "card": {k: getattr(card, k) for k in keys},
+             "cpu": {k: getattr(cpu, k) for k in keys},
+             "kernels_card": card.kernels, "kernels_cpu": cpu.kernels}
+        rel = {k: abs(t["card"][k] - t["cpu"][k]) / max(t["cpu"][k], 1)
+               for k in keys}
+        t["rel"] = rel
+        t["equal"] = rel["collective_bytes"] == 0 \
+            and rel["flops"] <= flops_bar and rel["bytes"] <= LA_TWIN_BYTES \
+            and {k: v["count"] for k, v in card.kernels.items()} \
+            == {k: v["count"] for k, v in cpu.kernels.items()}
+        log(f"float32 {kind} cell (smoke widths, S={S}, B={B}) on the card "
+            f"and the CPU: {t['card']} and {t['cpu']}, relative "
+            f"differences {rel} (bars: FLOPs {flops_bar:g}, bytes "
+            f"{LA_TWIN_BYTES:g}, collective bytes 0): "
+            f"{'ok' if t['equal'] else 'OUTSIDE THE BARS'}")
+        res["twins"].append(t)
+    res["launches_total"] = dryrun.launch_counts()
+    with open(args.launch_rank, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
 def main() -> int:
     args = parse_args()
     if args.sharded_rank is not None:    # started by sharded_phase
         return sharded_rank(args)
     if args.sharded_train_rank is not None:   # by sharded_train_phase
         return sharded_train_rank(args)
+    if args.launch_rank is not None:     # by launch_phase
+        return launch_rank(args)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script only runs on the GPU",
               file=sys.stderr)
@@ -4985,6 +5241,10 @@ def main() -> int:
     st_launches, st_tc, str_launches, str_tc = sharded_train_phase(
         args, counters)
     phase_done("sharded_train")
+    gc.collect()
+    torch.cuda.empty_cache()
+    la_launches, la_tc = launch_phase(args)
+    phase_done("launch")
     # each kernel's main-path count: the dense cluster serve for the two
     # kernels of the dense plane, the paged cluster serve for the others
     main_launches = dict(launches, flash_decode=dense_launches["flash_decode"],
@@ -5026,7 +5286,8 @@ def main() -> int:
                        "train": tr_tc.get(name, 0),
                        "sharded": sh_tc.get(name, 0),
                        "sharded_train": st_tc.get(name, 0),
-                       "sharded_train_ranks": str_tc.get(name, 0)}}
+                       "sharded_train_ranks": str_tc.get(name, 0),
+                       "launch": la_tc.get(name, 0)}}
         kernels.append({
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1], "launches": main_launches[name],
@@ -5042,7 +5303,8 @@ def main() -> int:
                                  "sharded_train": st_launches.get(name,
                                                                   0),
                                  "sharded_train_ranks": str_launches.get(
-                                     name, 0)},
+                                     name, 0),
+                                 "launch": la_launches.get(name, 0)},
             "max_abs_err": max(r["err"] for dt, r in rows
                                if dt.split("/")[0] in ("bfloat16", "int32")),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],

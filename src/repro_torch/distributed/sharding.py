@@ -38,6 +38,7 @@ from typing import Any, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch import counting
 
 
 class PartitionSpec(tuple):
@@ -192,7 +193,8 @@ class ShardingPolicy:
         if self.size(axes) == 1:
             return t
         import torch.distributed as dist
-        with torch.profiler.record_function("collective:all_reduce"):
+        with torch.profiler.record_function("collective:all_reduce"), \
+                counting.record("all-reduce", t):
             buf, back = self._stage(t)
             dist.all_reduce(buf, op={"sum": dist.ReduceOp.SUM,
                                      "max": dist.ReduceOp.MAX}[op],
@@ -205,7 +207,8 @@ class ShardingPolicy:
         if n == 1:
             return t
         import torch.distributed as dist
-        with torch.profiler.record_function("collective:all_gather"):
+        with torch.profiler.record_function("collective:all_gather"), \
+                counting.record("all-gather", t, n):
             buf, back = self._stage(t)
             parts = [torch.empty_like(buf) for _ in range(n)]
             dist.all_gather(parts, buf, group=self.mesh.group(axes))
@@ -251,6 +254,35 @@ class ShardingPolicy:
         if not _grad(t):
             return self.take_block(t, axes, dim)
         return _Split.apply(t, self, _axes(axes), dim)
+
+    def gather_blocks(self, t, axes, sum_axes=()):
+        """The blocks of ``t`` from the ranks of ``axes``, in their order
+        (the first axis major), as a tuple along dim 0 (views of one
+        all_gather). Backward: each block's gradient summed over
+        ``sum_axes`` in f32, and this rank's kept, one block at a time, so
+        the f32 sum of all the blocks' gradients at once, which
+        ``all_gather(sum_axes=)``'s backward makes, never exists. Over one
+        rank ``(enter(t, sum_axes),)``."""
+        if self.size(axes) == 1:
+            return (self.enter(t, sum_axes),)
+        if not _grad(t):
+            return tuple(self._gather(t, axes, 0).split(t.shape[0]))
+        return _GatherBlocks.apply(t, self, _axes(axes), _axes(sum_axes))
+
+    def keep_own(self, kept, y, mine: bool, axes):
+        """One link of the chain that keeps this rank's block of a tensor
+        made block by block, block c held by rank c of ``axes`` (a sum over
+        the gathered blocks of :meth:`gather_blocks`, say): ``y`` where it
+        is this rank's block (``mine``), else ``kept``, the chain so far
+        (None before the first block). Backward: ``y`` gets its owner's
+        gradient, summed over ``axes`` from the owner's and the other
+        ranks' zeros (what ``split``'s backward gathers for all the blocks
+        at once). Over one rank ``y``."""
+        if self.size(axes) == 1:
+            return y
+        if not _grad(y):
+            return y if mine else kept
+        return _KeepOwn.apply(kept, y, mine, self, _axes(axes))
 
     def take_block(self, t, axes, dim: int):
         """This rank's block of ``t`` along ``dim`` sharded over ``axes``."""
@@ -311,6 +343,45 @@ class _Split(torch.autograd.Function):
     def backward(ctx, g):
         return ctx.pol._gather(g.contiguous(), ctx.axes, ctx.dim), None, \
             None, None
+
+
+class _GatherBlocks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, pol, axes, sum_axes):
+        ctx.pol, ctx.axes, ctx.sum_axes = pol, axes, sum_axes
+        ctx.like = (t.shape, t.dtype, t.device)
+        return tuple(pol._gather(t, axes, 0).split(t.shape[0]))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        pol = ctx.pol
+        shape, dtype, device = ctx.like
+        out = None
+        for c, g in enumerate(gs):
+            if g is None:
+                g = torch.zeros(shape, dtype=dtype, device=device)
+            g = pol._sum32(g.contiguous(), ctx.sum_axes)
+            if c == pol.index(ctx.axes):
+                out = g
+        return out, None, None, None
+
+
+class _KeepOwn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, kept, y, mine, pol, axes):
+        ctx.mine, ctx.pol, ctx.axes = mine, pol, axes
+        ctx.first = kept is None
+        if mine:
+            return y.view_as(y)
+        return torch.zeros_like(y) if kept is None else kept.view_as(kept)
+
+    @staticmethod
+    def backward(ctx, g):
+        gy = ctx.pol._reduce(g if ctx.mine else torch.zeros_like(g),
+                             ctx.axes)
+        gk = None if ctx.first else (torch.zeros_like(g) if ctx.mine
+                                     else g)
+        return gk, gy, None, None, None
 
 
 def _divides(b: int, sizes) -> bool:

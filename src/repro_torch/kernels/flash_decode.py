@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import decode_route, ops
+from repro_torch import counting
 
 NEG_INF = -1e30
 
@@ -54,11 +55,7 @@ def flash_decode_plain(q, k_cache, v_cache, k_pos, q_pos, *, window=0,
     s = torch.einsum("bkgd,blkd->bkgl", qg, kf) / np.sqrt(hd)
     if softcap > 0:
         s = softcap * torch.tanh(s / softcap)
-    kp, qp = k_pos.long(), q_pos.long()[:, None]
-    valid = (kp >= 0) & (kp <= qp)
-    if window > 0:
-        valid = valid & (kp > qp - window)
-    valid = valid[:, None, None, :]
+    valid = valid_slots(k_pos, q_pos, window)[:, None, None, :]
     s = torch.where(valid, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(valid, torch.exp(s - m), torch.zeros_like(s))
@@ -72,6 +69,39 @@ def flash_decode_plain(q, k_cache, v_cache, k_pos, q_pos, *, window=0,
     return out.reshape(B, Hq, hd).to(q.dtype)
 
 
+def flash_decode_cost(B, Hq, Hkv, hd, L, n_valid, q_item, cache_item,
+                      int8=False, return_lse=False):
+    """(FLOPs, bytes) of one call over ``n_valid`` valid (row, slot) pairs
+    of a (B, L) cache: q read in its type, the output written (in q's type,
+    or a split-K shard's f32 output and log-sum-exp), K and V of the valid
+    slots (codes and f32 scales on an int8 cache), the positions."""
+    row_bytes = hd * cache_item + (4 if int8 else 0)
+    out_bytes = B * Hq * hd * 4 + B * Hq * 4 if return_lse \
+        else B * Hq * hd * q_item
+    nbytes = B * Hq * hd * q_item + out_bytes \
+        + n_valid * Hkv * 2 * row_bytes + B * L * 4 + B * 4
+    return 4 * n_valid * Hq * hd, nbytes
+
+
+def valid_slots(k_pos, q_pos, window: int = 0):
+    """(B, L) bool: the slots a row attends (the kernel's mask)."""
+    kp, qp = k_pos.long(), q_pos.long()[:, None]
+    valid = (kp >= 0) & (kp <= qp)
+    if window > 0:
+        valid = valid & (kp > qp - window)
+    return valid
+
+
+def _cost_of(q, k_cache, v_cache, k_pos, q_pos, *, window=0, softcap=0.0,
+             k_scale=None, v_scale=None, return_lse=False):
+    B, Hq, hd = q.shape
+    return flash_decode_cost(
+        B, Hq, k_cache.shape[2], hd, k_cache.shape[1],
+        int(valid_slots(k_pos, q_pos, window).sum()), q.element_size(),
+        k_cache.element_size(), k_scale is not None, return_lse)
+
+
+@counting.counted("flash_decode", _cost_of)
 def flash_decode(q, k_cache, v_cache, k_pos, q_pos, *, window: int = 0,
                  softcap: float = 0.0, k_scale=None, v_scale=None,
                  return_lse: bool = False):

@@ -24,6 +24,29 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch import counting
+
+
+def pack_kv_cost(rows, hd, item):
+    """(operations, bytes) of quantizing ``rows`` rows of ``hd``: the rows
+    read, codes and f32 scales written; |x|, max, a division and a
+    conversion a value."""
+    return 4 * rows * hd, rows * hd * item + rows * hd + rows * 4
+
+
+def pack_kv_write_cost(n, n_written, hd, item, index_bytes):
+    """(operations, bytes) of the int8 write of K and V, ``n`` rows each
+    read, ``n_written`` rows' codes and scales written, plus the
+    ``index_bytes`` of the slots' inputs (positions, block tables,
+    validity)."""
+    return 2 * 4 * n * hd, \
+        2 * (n * hd * item + n_written * (hd + 4)) + index_bytes
+
+
+def unpack_kv_cost(n, rows, out_item):
+    """(operations, bytes) of dequantizing ``n`` codes in ``rows`` rows:
+    codes and scales read, the output written."""
+    return 2 * n, n + rows * 4 + n * out_item
 
 
 def pack_kv_plain(t):
@@ -72,6 +95,8 @@ def unpack_kv_plain(q, s, dtype=torch.float32):
     return (q.float() * s[..., None].float()).to(dtype)
 
 
+@counting.counted("pack_kv", lambda t: pack_kv_cost(
+    t.numel() // t.shape[-1], t.shape[-1], t.element_size()))
 def pack_kv(t):
     """(..., hd) bf16/f32 -> ((..., hd) int8, (...) f32 scales)."""
     if t.device.type == "cpu":
@@ -91,6 +116,16 @@ def pack_kv(t):
     return q, s
 
 
+def _pages_cost_of(k, v, pool_k, pool_v, k_scale, v_scale, block_tables,
+                   positions, valid):
+    Hkv, hd = k.shape[2], k.shape[3]
+    return pack_kv_write_cost(
+        positions.numel() * Hkv, int(valid.sum()) * Hkv, hd,
+        k.element_size(),
+        4 * (block_tables.numel() + positions.numel()) + valid.numel())
+
+
+@counting.counted("pack_kv", _pages_cost_of)
 def pack_kv_into_pages(k, v, pool_k, pool_v, k_scale, v_scale, block_tables,
                        positions, valid):
     """Quantize k and v (B, S, Hkv, hd) bf16/f32 row by row and write codes
@@ -147,6 +182,17 @@ def pack_kv_into_pages(k, v, pool_k, pool_v, k_scale, v_scale, block_tables,
     pack_kv.launches += 1
 
 
+def _ring_cost_of(k, v, cache_k, cache_v, k_scale, v_scale, positions, *,
+                  ring_len=None, slot0=0):
+    B, S, Hkv, hd = k.shape
+    L = cache_k.shape[1]
+    slots = positions.long() % (ring_len or L) - slot0
+    written = int(((slots >= 0) & (slots < L)).sum())
+    return pack_kv_write_cost(B * S * Hkv, written * Hkv, hd,
+                              k.element_size(), 4 * positions.numel())
+
+
+@counting.counted("pack_kv", _ring_cost_of)
 def pack_kv_into_ring(k, v, cache_k, cache_v, k_scale, v_scale, positions,
                       *, ring_len=None, slot0: int = 0):
     """The int8 write of a dense (ring) cache: quantize k and v (B, S, Hkv,
@@ -181,6 +227,8 @@ def pack_kv_into_ring(k, v, cache_k, cache_v, k_scale, v_scale, positions,
                        slots[b, t].to(torch.int32)[:, None], ones)
 
 
+@counting.counted("unpack_kv", lambda q, s, dtype=torch.float32:
+                  unpack_kv_cost(q.numel(), s.numel(), dtype.itemsize))
 def unpack_kv(q, s, dtype=torch.float32):
     """(..., hd) int8 codes and (...) f32 scales -> (..., hd) in ``dtype``
     (bf16 or f32)."""

@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch import counting
 
 
 TC_CODE = 2          # the entry points' dtype code of the tensor-core route
@@ -51,11 +52,28 @@ def _route_code(x, w, out) -> int:
     return ops.DTYPE_CODE[x.dtype]
 
 
+def moe_gmm_cost(E, C, D, F, item):
+    """(FLOPs, bytes) of one padded product: x (E, C, D) and w (E, D, F)
+    read in their type, the f32 output written."""
+    return 2 * E * C * D * F, (E * C * D + E * D * F) * item + E * C * F * 4
+
+
+def moe_gmm_ragged_cost(rows, hit, Np, D, F, E, n_tiles, item):
+    """(FLOPs, bytes) of one ragged product over ``rows`` live rows of
+    ``hit`` experts: the live rows and those experts' weights read, the
+    (Np, F) f32 output written, the int32 metadata."""
+    nbytes = rows * D * item + hit * D * F * item + Np * F * 4 \
+        + 4 * (n_tiles + 2 * E + 1)
+    return 2 * rows * D * F, nbytes
+
+
 def moe_gmm_plain(x, w):
     """x (E, C, D) @ w (E, D, F) -> (E, C, F), in f32."""
     return torch.einsum("ecd,edf->ecf", x.float(), w.float())
 
 
+@counting.counted("moe_gmm", lambda x, w: moe_gmm_cost(
+    *x.shape, w.shape[-1], x.element_size()))
 def _moe_gmm_launch(x, w):
     """One product: the kernel on a CUDA tensor, the plain version on a CPU
     tensor."""
@@ -146,6 +164,15 @@ def moe_gmm_ragged_plain(x, w, tile_expert, group_sizes, padded_offsets, *,
     return y.reshape(Np, F)
 
 
+def _ragged_cost_of(x, w, tile_expert, group_sizes, padded_offsets, *,
+                    n_block):
+    E, D, F = w.shape
+    return moe_gmm_ragged_cost(int(group_sizes.sum()),
+                               int((group_sizes > 0).sum()), x.shape[0], D,
+                               F, E, tile_expert.numel(), x.element_size())
+
+
+@counting.counted("moe_gmm_ragged", _ragged_cost_of)
 def moe_gmm_ragged(x, w, tile_expert, group_sizes, padded_offsets, *,
                    n_block: int):
     """x (Np, D), w (E, D, F) in bf16 or f32; tile_expert (Np // n_block,),

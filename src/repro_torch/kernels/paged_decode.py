@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import decode_route, ops
+from repro_torch import counting
 
 NEG_INF = -1e30
 
@@ -57,6 +58,27 @@ def paged_decode_plain(q, k_pages, v_pages, block_tables, ctx_lens,
     return out.reshape(B, Hq, hd).to(q.dtype)
 
 
+def paged_decode_cost(B, Hq, Hkv, hd, NB, live, q_item, page_item,
+                      int8=False):
+    """(FLOPs, bytes) of one call over ``live`` context tokens: q read and
+    the output written in q's type, K and V of the live tokens (codes and
+    f32 scales on int8 pages), the block tables and the lengths."""
+    row_bytes = hd * page_item + (4 if int8 else 0)
+    nbytes = 2 * B * Hq * hd * q_item + live * Hkv * 2 * row_bytes \
+        + B * NB * 4 + B * 4
+    return 4 * live * Hq * hd, nbytes
+
+
+def _cost_of(q, k_pages, v_pages, block_tables, ctx_lens, *, k_scales=None,
+             v_scales=None):
+    B, Hq, hd = q.shape
+    return paged_decode_cost(B, Hq, k_pages.shape[2], hd,
+                             block_tables.shape[1], int(ctx_lens.sum()),
+                             q.element_size(), k_pages.element_size(),
+                             k_scales is not None)
+
+
+@counting.counted("paged_decode", _cost_of)
 def paged_decode(q, k_pages, v_pages, block_tables, ctx_lens, *,
                  k_scales=None, v_scales=None):
     """q (B, Hq, hd) bf16/f32; pages (P, ps, Hkv, hd) in q's dtype, or int8

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch import counting
 
 # The most slots (T * K) counted by one block: on an H100 the block's
 # device time meets the grid's (two memsets and the kernel, about 0.004 ms)
@@ -43,6 +44,19 @@ def source_expert_count_plain(expert_idx, source_ids, *, n_experts: int,
     return b.int(), a.reshape(n_sources, n_experts).int()
 
 
+def source_expert_count_cost(T, K, E, S):
+    """(operations, bytes) of one call: the (T, K) ids and (T,) sources
+    read, B (E,) and A (S, E) written, int32; two operations a slot."""
+    return 2 * T * K, 4 * (T * K + T + E + S * E)
+
+
+def _cost_of(expert_idx, source_ids, *, n_experts, n_sources, **_):
+    return source_expert_count_cost(expert_idx.shape[0],
+                                    expert_idx.shape[-1], n_experts,
+                                    n_sources)
+
+
+@counting.counted("source_expert_count", _cost_of)
 def source_expert_count(expert_idx, source_ids, *, n_experts: int,
                         n_sources: int,
                         single_block_slots: int = SINGLE_BLOCK_SLOTS):

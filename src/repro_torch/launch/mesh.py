@@ -18,6 +18,17 @@ then knows this rank's coordinates and holds one process group for every
 set of two or more axes beside the device mesh's one per axis, created on
 every rank in the same order when the mesh is made, so a collective over
 any set of axes (``distributed/sharding.py``) finds its group.
+
+``make_fake_mesh`` joins this process as rank 0 of a world of
+``prod(shape)`` ranks on PyTorch's ``fake`` backend, so that one process
+runs rank 0's own program of a 256- or 512-rank mesh at its local shapes
+(``launch/cells.py``, ``launch/dryrun.py``): real compute and memory on
+this process's device, the communication only modelled. The backend lives
+under ``torch.testing._internal.distributed.fake_pg``, PyTorch's testing
+namespace, not its public API: there is no fallback to another backend.
+Its collectives send nothing: ``all_gather`` writes this rank's block into
+every part and ``all_reduce`` leaves the tensor as it is, so shapes are
+right and values deterministic, but they are not the real sums.
 """
 from __future__ import annotations
 
@@ -147,4 +158,38 @@ def make_device_mesh(shape: Sequence[int], axes: Sequence[str],
             mine, _ = dist.new_subgroups_by_enumeration(
                 rows.reshape(-1, prod(shape[i] for i in sub)).tolist())
             mesh._groups[tuple(axes[i] for i in sub)] = mine
+    return mesh
+
+
+def make_fake_mesh(shape: Sequence[int], axes: Sequence[str],
+                   device: str = "cuda") -> Mesh:
+    """Rank 0 of a ``fake``-backend world of ``prod(shape)`` ranks, through
+    :func:`make_device_mesh`. Raises if this process already has a process
+    group (a world is process-global) or the backend cannot be imported,
+    and checks that the backend's ``all_gather`` writes every part on
+    ``device``."""
+    import torch
+    import torch.distributed as dist
+    if dist.is_initialized():
+        raise RuntimeError("make_fake_mesh: this process already has a "
+                           "process group; a fake world needs its own "
+                           "process")
+    try:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError as exc:
+        raise RuntimeError("make_fake_mesh: PyTorch's fake process group "
+                           "(torch.testing._internal.distributed.fake_pg) "
+                           "is not available") from exc
+    n = prod(shape)
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    mesh = make_device_mesh(shape, axes, device)
+    if mesh.backend != "fake":
+        raise RuntimeError(f"make_fake_mesh: backend {mesh.backend!r}")
+    # the shapes the models see rest on this: every part written
+    probe = torch.arange(4, dtype=torch.float32, device=mesh.device)
+    parts = [torch.full_like(probe, -1.0) for _ in range(n)]
+    dist.all_gather(parts, probe)
+    if not all(torch.equal(p, probe) for p in parts):
+        raise RuntimeError("make_fake_mesh: the fake backend's all_gather "
+                           f"left parts unwritten on {mesh.device}")
     return mesh

@@ -21,6 +21,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.models.layers import softcap as _softcap
@@ -56,6 +57,13 @@ def _attend_one_kv_block(q, kb, vb, qpos, kpos, *, scale, causal, window, cap,
     return m_new, l_new, acc_new
 
 
+# the f32 scores of a :func:`flash_attention` call (B * Hq * Sq * Skv * 4
+# bytes) past which its backward recomputes each query block's instead of
+# keeping them: 4 rows of 512 tokens at 32 heads keep 134 MB, a rank's 16
+# rows of 4096 tokens at 40 heads would keep a few times 43 GB a layer
+REMAT_SCORES_BYTES = 2 ** 30
+
+
 def flash_attention(q, k, v, *, q_pos, k_pos, causal: bool = True,
                     window: int = 0, softcap_val: float = 0.0,
                     q_block: int = 512, kv_block: int = 512,
@@ -71,24 +79,48 @@ def flash_attention(q, k, v, *, q_pos, k_pos, causal: bool = True,
     if scale is None:
         scale = 1.0 / np.sqrt(hd)
     qg = q.reshape(B, Sq, Hkv, G, hd)
+    kw = dict(scale=scale, causal=causal, window=window, cap=softcap_val,
+              kv_block=kv_block)
+    # under autograd, where the call's f32 scores pass REMAT_SCORES_BYTES,
+    # each query block's softmax is recomputed in the backward
+    # (``torch.utils.checkpoint``), the same ops in the same order: kept, a
+    # KV block's scores and weights are a few (B, Hkv, G, q_block,
+    # kv_block) f32 tensors, 140 GB a layer at 16 rows of 4096 tokens with
+    # 40 heads. Below it they are kept, and the forward runs no third time
+    # under the super-block's own recompute. (Not each KV step as well: a
+    # checkpoint holds its inputs, which the enclosing super-block's
+    # checkpoint cannot drop, and a KV step's running state is as large as
+    # a query block's output.)
+    grad = torch.is_grad_enabled() \
+        and any(t.requires_grad for t in (q, k, v)) \
+        and B * Hq * Sq * Skv * 4 > REMAT_SCORES_BYTES
     outs = []
     for q0 in range(0, Sq, q_block):
-        qcur = qg[:, q0:q0 + q_block]
-        qpos = q_pos[:, q0:q0 + q_block]
-        Bq = qcur.shape[1]
-        m = torch.full((B, Hkv, G, Bq), NEG_INF, dtype=torch.float32,
-                       device=q.device)
-        l = torch.zeros((B, Hkv, G, Bq), dtype=torch.float32, device=q.device)
-        acc = torch.zeros((B, Hkv, G, Bq, hd), dtype=torch.float32,
-                          device=q.device)
-        for k0 in range(0, Skv, kv_block):
-            m, l, acc = _attend_one_kv_block(
-                qcur, k[:, k0:k0 + kv_block], v[:, k0:k0 + kv_block], qpos,
-                k_pos[:, k0:k0 + kv_block], scale=scale, causal=causal,
-                window=window, cap=softcap_val, m=m, l=l, acc=acc)
-        out = acc / torch.clamp(l, min=1e-30)[..., None]
-        outs.append(out.permute(0, 3, 1, 2, 4).to(q.dtype))  # (B,Bq,Hkv,G,hd)
+        args = (qg[:, q0:q0 + q_block], k, v, q_pos[:, q0:q0 + q_block],
+                k_pos)
+        outs.append(checkpoint(_attend_q_block, *args, **kw,
+                               use_reentrant=False) if grad
+                    else _attend_q_block(*args, **kw))
     return torch.cat(outs, dim=1).reshape(B, Sq, Hq, hd)
+
+
+def _attend_q_block(qcur, k, v, qpos, k_pos, *, scale, causal, window, cap,
+                    kv_block):
+    """One query block against every KV block: (B, Bq, Hkv, G, hd) in q's
+    dtype."""
+    B, Bq, Hkv, G, hd = qcur.shape
+    m = torch.full((B, Hkv, G, Bq), NEG_INF, dtype=torch.float32,
+                   device=qcur.device)
+    l = torch.zeros((B, Hkv, G, Bq), dtype=torch.float32, device=qcur.device)
+    acc = torch.zeros((B, Hkv, G, Bq, hd), dtype=torch.float32,
+                      device=qcur.device)
+    for k0 in range(0, k.shape[1], kv_block):
+        m, l, acc = _attend_one_kv_block(
+            qcur, k[:, k0:k0 + kv_block], v[:, k0:k0 + kv_block], qpos,
+            k_pos[:, k0:k0 + kv_block], scale=scale, causal=causal,
+            window=window, cap=cap, m=m, l=l, acc=acc)
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).to(qcur.dtype)
 
 
 def decode_attention(q, k_cache, v_cache, *, q_pos, k_pos, window: int = 0,

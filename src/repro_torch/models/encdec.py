@@ -34,9 +34,10 @@ from repro_torch.distributed.sharding import (drop_leading, fsdp_plan,
                                                gather_leaves, grad_entry,
                                                param_specs)
 from repro_torch.models.attention import flash_attention, ring_positions
-from repro_torch.models.layers import (cross_entropy, dense_init,
-                                       embed_tokens, init_embed, init_mlp,
-                                       lm_logits, mlp, rms_norm, torch_dtype)
+from repro_torch.models.layers import (dense_init, embed_tokens,
+                                       init_embed, init_mlp,
+                                       lm_cross_entropy, lm_logits, mlp,
+                                       rms_norm, torch_dtype)
 from repro_torch.models.transformer import (LayerDesc, _kv_for_heads,
                                             _qkv_heads, _write_ring,
                                             init_attention, kv_layout,
@@ -274,8 +275,8 @@ def loss_fn(params, cfg: ModelConfig, batch, *, placement=None,
                       enc_out, _positions(B, S_src, x.device), "train",
                       policy, plan["dec"])
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = lm_logits(params["embed"], cfg, x, policy)
-    ce = cross_entropy(logits, batch["labels"], batch.get("mask"), policy)
+    ce = lm_cross_entropy(params["embed"], cfg, x, batch["labels"],
+                          batch.get("mask"), policy)
     return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
                                              device=x.device)}
 

@@ -137,62 +137,101 @@ def zeros_tied(shape, *ts):
 
 
 def _ragged_moe_ffn(params, x, gates, logical_idx, placement, E, K, src2d,
-                    n_sources: int, collect_stats: bool, token_mask=None,
-                    e0: int = 0):
+                    n_sources: int, collect_stats: bool, token_mask=None):
     """Sort-based dropless expert FFN: sort physical ids -> group sizes ->
     block-aligned gather -> ragged GMM (gate, up, down) -> gate-weighted
     combine. Issued FLOPs scale with the real tokens per expert. Returns
-    (y (B, S, D) f32, statistics).
-
-    Under expert parallelism ``params`` hold the experts of physical slots
-    [e0, e0 + E_loc) only: just the (token, k) slots routed to them are
-    dispatched, and the others weigh 0 in the combine, so ``y`` holds
-    their gate-weighted sum alone."""
-    B, S, D = x.shape
-    T = B * S
-    x2d = x.reshape(T, D)
-    phys = placement.long()[logical_idx.long()].reshape(T, K)
-    g = gates.reshape(T, K)
-    E_loc = params["w_gate"].shape[0]
-    if E_loc == E:
-        nb = pick_row_block(T * K, E)
-        disp = ragged_dispatch(x2d, phys, E, row_block=nb)
-        dest = disp.dest
-    else:
-        local = (phys >= e0) & (phys < e0 + E_loc)
-        sel = torch.nonzero(local.reshape(-1)).flatten()
-        if not sel.numel():            # no slot routed to these experts
-            return zeros_tied((B, S, D), x, gates,
-                              *(params[n] for n in EXPERT_LEAVES)), {}
-        nb = pick_row_block(int(sel.numel()), E_loc)
-        disp = ragged_dispatch(x2d[torch.div(sel, K, rounding_mode="floor")],
-                               (phys.reshape(-1)[sel] - e0).reshape(-1, 1),
-                               E_loc, row_block=nb)
-        # slot (t, k) reads its row of ys, or the zero row past the end
-        dest = torch.full((T * K,), int(disp.xs.shape[0]), dtype=torch.long,
-                          device=x.device)
-        dest[sel] = disp.dest.long()
-        g = torch.where(local, g, torch.zeros((), dtype=g.dtype,
-                                              device=x.device))
-
+    (y (B, S, D) f32, statistics): :func:`_ragged_blocks` of one block.
+    Under expert parallelism the layer goes through
+    :func:`_sharded_moe_layer` instead."""
+    sizes, parts = _ragged_blocks(params, (x,), (gates,), (logical_idx,),
+                                  placement, E, K)
     stats = {}
     if collect_stats:
         # physical slot placement[l] holds logical expert l, so the logical
         # load B[e] is a gather of the sort pass's bincount; masked tokens
         # still dispatch but must not register load
-        counts = disp.group_sizes[placement.long()] \
-            if token_mask is None and E_loc == E else None
+        counts = sizes[placement.long()] if token_mask is None else None
         stats = _routing_stats(logical_idx, E, src2d, n_sources, token_mask,
                                True, counts)
+    (y,) = parts
+    return y, stats
 
+
+def _cat(ts):
+    return ts[0] if len(ts) == 1 else torch.cat(ts)
+
+
+def _ragged_blocks(params, xs, gates, ids, placement, E, K, e0: int = 0):
+    """The ragged expert FFN of the tokens of the blocks ``xs`` (each
+    (Bc, S, D), one rank's tokens, with their ``gates`` and ``ids``) ->
+    (the dispatch's group sizes, or None where no slot is routed here; an
+    iterator of each block's f32 output (Bc, S, D) in turn). One dispatch
+    and one launch of each GMM over all the blocks' slots routed to this
+    rank's experts, as for the gathered tokens in one piece; the combine
+    one block at a time, as the iterator is read, so no tensor the size of
+    all the blocks' outputs is made. ``params`` hold the experts of
+    physical slots [e0, e0 + E_loc)."""
+    Bc, S, D = xs[0].shape
+    Tc, n = Bc * S, len(xs)
+    T = n * Tc
+    E_loc = params["w_gate"].shape[0]
+    phys = placement.long()[_cat(ids).long()].reshape(T, K)
+    g = _cat(gates).reshape(T, K)
+    if E_loc == E:                     # every expert here: as one call
+        nb = pick_row_block(T * K, E)
+        disp = ragged_dispatch(_cat(xs).reshape(T, D), phys, E,
+                               row_block=nb)
+    else:
+        local = (phys >= e0) & (phys < e0 + E_loc)
+        sel = torch.nonzero(local.reshape(-1)).flatten()
+        if not sel.numel():            # no slot routed to these experts
+            return None, (zeros_tied((Bc, S, D), xc, gc,
+                                     *(params[k] for k in EXPERT_LEAVES))
+                          for xc, gc in zip(xs, gates))
+        # each block's bounds in sel (ascending flat (token, k) indices),
+        # and the rows of its slots, read from the block itself
+        cut = torch.searchsorted(sel, torch.arange(
+            n + 1, device=sel.device) * Tc * K).tolist()
+        tok = torch.div(sel, K, rounding_mode="floor")
+        rows = torch.cat([xs[c].reshape(Tc, D)[tok[cut[c]:cut[c + 1]]
+                                               - c * Tc] for c in range(n)])
+        nb = pick_row_block(int(sel.numel()), E_loc)
+        disp = ragged_dispatch(rows, (phys.reshape(-1)[sel] - e0)
+                               .reshape(-1, 1), E_loc, row_block=nb)
     args = (disp.tile_expert, disp.group_sizes, disp.padded_offsets, nb)
     gate = ragged_gmm(disp.xs, params["w_gate"], *args)
     up = ragged_gmm(disp.xs, params["w_up"], *args)
-    h = (F.silu(gate) * up).to(x.dtype)       # f32 on the GMM's f32 outputs
+    h = (F.silu(gate) * up).to(xs[0].dtype)   # f32 on the GMM's outputs
     ys = ragged_gmm(h, params["w_down"], *args)
-    if E_loc != E:
-        ys = torch.cat([ys, ys.new_zeros((1, ys.shape[1]))])
-    return ragged_combine(ys, dest, g).reshape(B, S, D), stats
+
+    def combine(c):
+        t0, t1 = c * Tc, (c + 1) * Tc
+        if E_loc == E:
+            y = ragged_combine(ys, disp.dest[t0 * K:t1 * K], g[t0:t1])
+        else:
+            lo, hi = cut[c], cut[c + 1]
+            y = _local_combine(ys[disp.dest[lo:hi].long()],
+                               sel[lo:hi] - t0 * K, g[t0:t1], Tc, K)
+        return y.reshape(Bc, S, D)
+    return disp.group_sizes, map(combine, range(n))
+
+
+def _local_combine(ys, sel, g, T: int, K: int):
+    """The gate-weighted sum of each token's slots routed to this rank's
+    experts: ``ys`` (n, F) f32 the outputs of the local slots ``sel``
+    (ascending flat (token, k) indices), ``g`` (T, K) -> (T, F). A token's
+    slots are added in k order to zeros, one k at a time (each token at
+    most once a pass, so the adds are exact in any order on the card), and
+    no (T, K, F) tensor of every slot is made: under EP a rank holds 1/M
+    of the slots."""
+    c = ys * g.reshape(-1)[sel][:, None].to(ys.dtype)
+    y = torch.zeros((T, ys.shape[1]), dtype=ys.dtype, device=ys.device)
+    tok, k = torch.div(sel, K, rounding_mode="floor"), sel % K
+    for j in range(K):
+        at = k == j
+        y.index_add_(0, tok[at], c[at])
+    return y
 
 
 def _padded_moe_ffn(params, x, gates, logical_idx, placement, E, K, cf,
@@ -299,32 +338,43 @@ def moe_layer(params, cfg, x, placement, *, source_ids=None,
 
 
 def _moe_epilogue(params, cfg, x, y, stats, probs, logical_idx, E, K,
-                  policy=None, xg=None, red=(), gather=()):
+                  policy=None, red=(), gather=()):
     """Both dispatch paths: the shared-expert branch on the layer's input
     (the reference runs it on the decode regroup's ``(1, B, D)`` view of
     ``x``; ``@`` folds the leading dimensions, so the rows are the same),
     and the router aux loss (train-time load balancing) from the routing
     probabilities, added to ``stats``. Returns (y, stats).
 
-    Under a policy ``y`` is this rank's f32 part of the sum over the axes
-    ``red``, for the tokens ``xg`` (``x`` gathered over ``gather``): the
-    shared expert's part joins it where its parts are summed over axes of
-    ``red`` (:func:`_shared_part`, else summed on its own), the sum is
-    all_reduced and this rank's rows are taken back (their gradient
-    gathered back in the backward); the statistics and the aux loss's
-    batch means are summed over the batch axes."""
+    Under a policy ``y`` yields, for each rank c of ``gather`` in turn, the
+    tokens that rank holds and this rank's f32 part of their sum over the
+    axes ``red``: the shared expert's part joins it where its parts are
+    summed over axes of ``red`` (:func:`_shared_part`, else summed on its
+    own), the block's sum is all_reduced, and this rank keeps its own
+    block (``ShardingPolicy.keep_own``, whose backward hands each block its
+    owner's gradient). One block at a time, so the sums of all the
+    gathered tokens (a million rows at 16 data ranks) never exist at once.
+    The statistics and the aux loss's batch means are summed over the
+    batch axes."""
     if policy is None:
         if cfg.moe.n_shared_experts:
             y = y + mlp(params["shared"], x)
     else:
-        after = None
-        if cfg.moe.n_shared_experts:
-            sh, after = _shared_part(params["shared"], cfg, x, xg, policy,
-                                     red, gather)
-            if sh is not None:
-                y = y + sh
-        y = policy.split(policy.all_reduce(y, red), gather, 0)
-        if after is not None:
+        shared = params["shared"] if cfg.moe.n_shared_experts else None
+        inside = shared is not None and \
+            set(_shared_axes(cfg, policy)) <= set(red)
+        me, kept = policy.index(gather), None
+        for c, (xc, part) in enumerate(y):
+            if inside:
+                sh, _ = _shared_part(shared, cfg, x, xc, policy, red,
+                                     gather)
+                if sh is not None:
+                    part = part + sh
+            part = policy.all_reduce(part, red)
+            kept = policy.keep_own(kept, part, c == me, gather)
+        y = kept
+        if shared is not None and not inside:
+            _, after = _shared_part(shared, cfg, x, None, policy, red,
+                                    gather)
             y = y + after
         y = y.to(x.dtype)
     probs_mean = probs.reshape(-1, E).mean(dim=0)
@@ -342,8 +392,9 @@ def _moe_epilogue(params, cfg, x, y, stats, probs, logical_idx, E, K,
 
 def _shared_part(shared, cfg, x, xg, policy, red, gather):
     """A MoE layer's shared expert under a policy -> (this rank's f32 part
-    of the sum over ``red`` for the tokens ``xg``, or None; else the
-    shared output for this rank's rows of ``x``, or None).
+    of the sum over ``red`` for the tokens ``xg`` (one rank's block of
+    ``x`` gathered over ``gather``), or None; else the shared output for
+    this rank's rows of ``x``, or None).
 
     The shared output is a sum of parts over ``model`` where the spec cuts
     the shared stack's super-blocks over it (one ``model`` rank holds the
@@ -356,18 +407,14 @@ def _shared_part(shared, cfg, x, xg, policy, red, gather):
     are gathered and summed on their own."""
     from repro_torch.models.transformer import n_super_blocks
     M = policy.model_axis
-    m = cfg.moe
-    fs_cut = policy.splits(m.n_shared_experts * m.d_shared,
-                           policy.eds_axes)
+    fs_cut = _shared_cut(cfg, policy)
     by_layer = policy.splits(n_super_blocks(cfg), M)
-    parts = tuple(a for a in policy.mesh.axis_names
-                  if (a == M and by_layer) or (fs_cut and a in
-                                               policy.eds_axes))
+    parts = _shared_axes(cfg, policy)
     held = shared["w_gate"] is not None
-    grad = torch.is_grad_enabled() and xg.requires_grad
     if set(parts) <= set(red):
         if not held:                   # another model rank's layer
             return None, None
+        grad = torch.is_grad_enabled() and xg.requires_grad
         coords = policy.mesh.coords()
         whole = tuple(a for a in red
                       if (a == M and not by_layer)
@@ -389,6 +436,22 @@ def _shared_part(shared, cfg, x, xg, policy, red, gather):
     return None, policy.split(policy.all_reduce(part, parts), sg, 0)
 
 
+def _shared_cut(cfg, policy) -> bool:
+    m = cfg.moe
+    return policy.splits(m.n_shared_experts * m.d_shared, policy.eds_axes)
+
+
+def _shared_axes(cfg, policy):
+    """The axes the shared expert's output is a sum of parts over."""
+    from repro_torch.models.transformer import n_super_blocks
+    M = policy.model_axis
+    by_layer = policy.splits(n_super_blocks(cfg), M)
+    fs_cut = _shared_cut(cfg, policy)
+    return tuple(a for a in policy.mesh.axis_names
+                 if (a == M and by_layer) or (fs_cut and a in
+                                              policy.eds_axes))
+
+
 def _sharded_moe_layer(params, cfg, x, placement, gates, logical_idx, probs,
                        src, n_sources, collect_stats, ragged, token_mask, cf,
                        policy):
@@ -402,12 +465,14 @@ def _sharded_moe_layer(params, cfg, x, placement, gates, logical_idx, probs,
     gate-weighted outputs; an all_reduce over ``model`` (and over the data
     axes whose ranks hold the other FFN blocks) sums the parts. Where the
     ranks of a data axis hold other FFN blocks of the same experts, they
-    first all_gather their tokens, and each takes its rows back after the
-    sum. The padded path's decode regroup (the reference's one dispatch
-    group of the whole batch at S == 1) gathers the whole batch over the
-    batch axes, so that capacity and queue positions are those of the
-    global batch. The statistics are counted over this rank's tokens and
-    summed over the batch axes (:func:`_moe_epilogue`)."""
+    first all_gather their tokens (``ShardingPolicy.gather_blocks``); the
+    parts are then summed one rank's block of tokens at a time, and each
+    rank keeps its own (:func:`_moe_epilogue`). The padded path's decode
+    regroup (the reference's one dispatch group of the whole batch at
+    S == 1) gathers the whole batch over the batch axes, so that capacity
+    and queue positions are those of the global batch. The statistics are
+    counted over this rank's tokens and summed over the batch axes
+    (:func:`_moe_epilogue`)."""
     m = cfg.moe
     B, S, D = x.shape
     K, E = m.top_k, m.n_experts
@@ -424,21 +489,28 @@ def _sharded_moe_layer(params, cfg, x, placement, gates, logical_idx, probs,
                 if (a == M and ep) or (f_cut and a in policy.eds_axes))
     # each rank's experts read the gathered tokens and gates: their
     # gradients are summed over red before this rank's rows are kept
-    xg, gg = (policy.all_gather(t, gather, 0, sum_axes=red)
-              for t in (x, gates))
-    ig = policy.all_gather(logical_idx, gather, 0)
-    Bg = xg.shape[0]
-    if ragged:
-        y, _ = _ragged_moe_ffn(params, xg, gg, ig, placement, E, K, None, 0,
-                               False, e0=e0)
-    elif regroup:
+    if regroup:      # one dispatch group of the whole batch, then its rows
+        xg, gg = (policy.all_gather(t, gather, 0, sum_axes=red)
+                  for t in (x, gates))
+        ig = policy.all_gather(logical_idx, gather, 0)
+        Bg = xg.shape[0]
         y = _padded_moe_ffn(params, xg.reshape(1, Bg, D),
                             gg.reshape(1, Bg, K), ig.reshape(1, Bg, K),
                             placement, E, K, cf, e0).reshape(Bg, 1, D)
-    else:
-        y = _padded_moe_ffn(params, xg, gg, ig, placement, E, K, cf, e0)
-    return _moe_epilogue(params, cfg, x, y.float(), stats, probs,
-                         logical_idx, E, K, policy, xg, red, gather)
+        blocks = zip(xg.split(B), y.float().split(B))
+    else:            # one rank's tokens at a time
+        xs, gs = (policy.gather_blocks(t, gather, red) for t in (x, gates))
+        ids = policy.gather_blocks(logical_idx, gather)
+        if ragged:
+            _, parts = _ragged_blocks(params, xs, gs, ids, placement, E, K,
+                                      e0)
+        else:        # the padded dispatch groups each row on its own
+            parts = (_padded_moe_ffn(params, xc, gc, ic, placement, E, K, cf,
+                                     e0).float()
+                     for xc, gc, ic in zip(xs, gs, ids))
+        blocks = zip(xs, parts)
+    return _moe_epilogue(params, cfg, x, blocks, stats, probs, logical_idx,
+                         E, K, policy, red, gather)
 
 
 def moved_slots(old_placement, new_placement):

@@ -67,9 +67,10 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.models.attention import (decode_attention,
                                           flash_attention, ring_positions)
-from repro_torch.models.layers import (apply_rope, cross_entropy, dense_init,
-                                       embed_tokens, init_embed, init_mlp,
-                                       lm_logits, mlp, rms_norm, torch_dtype)
+from repro_torch.models.layers import (apply_rope, dense_init, embed_tokens,
+                                       init_embed, init_mlp,
+                                       lm_cross_entropy, lm_logits, mlp,
+                                       rms_norm, torch_dtype)
 from repro_torch.models.ssm import init_mamba, mamba_block
 
 
@@ -971,8 +972,8 @@ def loss_fn(params, cfg: ModelConfig, batch, *, placement=None,
         collect_stats=cfg.moe.enabled, ragged=ragged, remat=True,
         policy=policy, plan=plan)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = lm_logits(params["embed"], cfg, x, policy)
-    ce = cross_entropy(logits, batch["labels"], batch.get("mask"), policy)
+    ce = lm_cross_entropy(params["embed"], cfg, x, batch["labels"],
+                          batch.get("mask"), policy)
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     if stats is not None and "aux_loss" in stats:
         aux = stats["aux_loss"].mean()

@@ -24,8 +24,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import (fsdp_plan, gather_leaves,
                                                grad_entry, param_specs)
-from repro_torch.models.layers import (cross_entropy, embed_tokens,
-                                       init_embed, lm_logits, rms_norm)
+from repro_torch.models.layers import (embed_tokens, init_embed,
+                                       lm_cross_entropy, lm_logits, rms_norm)
 from repro_torch.models.ssm import (init_mlstm, init_slstm, mlstm_block,
                                     mlstm_state_init, slstm_block,
                                     slstm_state_init)
@@ -123,8 +123,8 @@ def loss_fn(params, cfg: ModelConfig, batch, *, placement=None,
     x = embed_tokens(params["embed"], cfg, batch["tokens"], policy)
     x, _ = _forward(params, cfg, x, None, plan, policy)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = lm_logits(params["embed"], cfg, x, policy)
-    ce = cross_entropy(logits, batch["labels"], batch.get("mask"), policy)
+    ce = lm_cross_entropy(params["embed"], cfg, x, batch["labels"],
+                          batch.get("mask"), policy)
     return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
                                              device=x.device)}
 

@@ -369,6 +369,28 @@ def _collectives(mesh):
         [blk(x, M, 0) for x in grads(lambda t: sum(
             (blk_r(t, (r + 1) % m, m).sin() * Cs[r]).sum()
             for r in range(m)), T)])
+    # the same gather as blocks, each block read by each rank in its own
+    # way (backward: each block's gradient summed over model, this rank's
+    # kept)
+    Cb = [[rnd(4, 3) for _ in range(m)] for _ in range(m)]
+    held("gather_blocks", grads(lambda t: pol.all_reduce(sum(
+        (b.sin() * Cb[me][c]).sum()
+        for c, b in enumerate(pol.gather_blocks(t, M, M))), M),
+        blk(T, M, 0)),
+        [blk(x, M, 0) for x in grads(lambda t: sum(
+            (blk_r(t, c, m).sin() * Cb[r][c]).sum()
+            for r in range(m) for c in range(m)), T)])
+    # a tensor made block by block on every rank, each rank keeping its own
+    # block (backward: each block gets its owner's gradient)
+    Tk, Ck = rnd(4, 3), [rnd(4, 3) for _ in range(m)]
+
+    def chain(t):
+        kept = None
+        for c in range(m):
+            kept = pol.keep_own(kept, (t * (c + 1)).tanh(), c == me, M)
+        return pol.all_reduce((kept * Ck[me]).sum(), M)
+    held("keep_own", grads(chain, Tk), grads(lambda t: sum(
+        ((t * (c + 1)).tanh() * Ck[c]).sum() for c in range(m)), Tk))
     # this rank's block of a tensor the ranks share (backward: the blocks'
     # gradients gathered)
     Y = rnd(4 * m, 2)

@@ -29,6 +29,11 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "import repro_torch.kernels.kv_pack\n"
         "import repro_torch.kernels.flash_decode, repro_torch.models.api\n"
         "import repro_torch.distributed.sharding, repro_torch.launch.mesh\n"
+        "import repro_torch.launch.cells, repro_torch.launch.dryrun\n"
+        "import repro_torch.launch.collective_analysis\n"
+        "import repro_torch.launch.cost, repro_torch.launch.roofline\n"
+        "import repro_torch.launch.roofline_run\n"
+        "import repro_torch.launch.perf_run, repro_torch.counting\n"
         "import repro_torch.serving.real_engine\n"
         "import repro_torch.serving.engine, repro_torch.serving.routing_sim\n"
         "import repro_torch.serving.simulator, repro_torch.core.minlp\n"
@@ -47,6 +52,27 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "get_smoke_config('llama4-maverick-400b-a17b')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'msgpack', 'zstandard'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_kernels_models_and_policy_load_no_launch_tooling():
+    """The kernels, the models and the policy sit below the launch tooling:
+    they reach its counters through ``repro_torch.counting`` only."""
+    code = (
+        "import sys\n"
+        "import repro_torch.kernels.moe_gmm, repro_torch.kernels.kv_pack\n"
+        "import repro_torch.kernels.flash_decode\n"
+        "import repro_torch.kernels.paged_decode\n"
+        "import repro_torch.kernels.source_expert_count\n"
+        "import repro_torch.distributed.sharding, repro_torch.models.api\n"
+        "import repro_torch.models.transformer, repro_torch.models.moe\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.startswith('repro_torch.launch'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))

@@ -107,3 +107,39 @@ def test_flash_attention(dtype, q_block, kv_block):
                                k_pos=torch.from_numpy(k_pos), **kw)
     assert ot.dtype == qt.dtype and ot.shape == qt.shape
     _close(ot, oj, dtype)
+
+
+@pytest.mark.parametrize("q_block,kv_block", [(512, 512), (16, 32)])
+def test_flash_attention_recompute_keeps_the_gradient(monkeypatch, q_block,
+                                                      kv_block):
+    """Past ``REMAT_SCORES_BYTES`` the backward recomputes each query
+    block's softmax: the same gradients, bit for bit, as keeping them, and
+    within 1e-5 of the reference's (float32)."""
+    rng = np.random.default_rng(5)
+    B, Sq, Skv, Hq, Hkv, hd = 2, 37, 70, 4, 2, 16
+    arrs = [rng.normal(size=(B, Sq, Hq, hd)), rng.normal(size=(B, Skv, Hkv,
+                                                               hd)),
+            rng.normal(size=(B, Skv, Hkv, hd))]
+    w = rng.normal(size=(B, Sq, Hq, hd))
+    q_pos = (np.arange(Sq)[None] + np.array([[20], [33]])).astype(np.int32)
+    k_pos = np.where(np.arange(Skv)[None] < np.array([[57], [70]]),
+                     np.arange(Skv)[None], -1).astype(np.int32)
+    kw = dict(causal=True, q_block=q_block, kv_block=kv_block)
+
+    def grads(limit):
+        monkeypatch.setattr(tattn, "REMAT_SCORES_BYTES", limit)
+        qkv = [torch.tensor(a, dtype=torch.float32, requires_grad=True)
+               for a in arrs]
+        out = tattn.flash_attention(*qkv, q_pos=torch.from_numpy(q_pos),
+                                    k_pos=torch.from_numpy(k_pos), **kw)
+        (out * torch.from_numpy(w).float()).sum().backward()
+        return [t.grad for t in qkv]
+
+    kept, recomputed = grads(2 ** 62), grads(0)
+    assert all(torch.equal(a, b) for a, b in zip(kept, recomputed))
+    ref = jax.grad(lambda q, k, v: jnp.sum(jattn.flash_attention(
+        q, k, v, q_pos=jnp.asarray(q_pos), k_pos=jnp.asarray(k_pos), **kw)
+        * jnp.asarray(w, jnp.float32)), argnums=(0, 1, 2))(
+        *(jnp.asarray(a, jnp.float32) for a in arrs))
+    for t, j in zip(recomputed, ref):
+        _close(t, j, "float32")

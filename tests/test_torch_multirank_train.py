@@ -117,7 +117,8 @@ CASES = {
     "ckpt_restore_1x4": ("ckpt_restore", "train_fp32", (1, 4), {}),
 }
 COLLECTIVES = ["all_reduce", "enter", "all_gather", "all_gather_summed",
-               "split", "fsdp_gather", "grad_entry", "all_reduce_max"]
+               "gather_blocks", "keep_own", "split", "fsdp_gather",
+               "grad_entry", "all_reduce_max"]
 
 
 def _jcfg(arch, layers):
