@@ -4056,7 +4056,8 @@ def sharded_rank(args) -> int:
     print(check_shards("decode attention", seen,
                        (n_steps - 1) * cfg.n_layers), flush=True)
     # a decode step through the entry point: its wall and the collectives'
-    # share (record_function ranges of distributed/sharding.py)
+    # share (the `collective:*` spans of distributed/sharding.py, each a
+    # host-side profiler range while the profiler runs)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     lengths = rec["lengths"].to(dev) + n_steps - 1
@@ -4077,8 +4078,8 @@ def sharded_rank(args) -> int:
         lg, cache, _ = fns.decode(params, tok, cache, lengths + 3, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # each record_function range also shows as a GPU user annotation:
-    # count and time the host-side ranges only
+    # count and time the host-side ranges only (a record_function range
+    # would also show as a GPU user annotation)
     host = [e for e in prof.events() if e.name.startswith("collective:")
             and e.device_type == DeviceType.CPU]
     coll = sum(e.cpu_time_total for e in host) / 1e6
@@ -4502,8 +4503,8 @@ def sharded_train_phase(args, counters):
 
 def _collective_share(prof, wall):
     """(seconds in the ``collective:*`` ranges on the host, their count)
-    of a profile; each range also shows as a GPU user annotation, so only
-    the host-side ranges count."""
+    of a profile; only the host-side ranges count (a record_function range
+    would also show as a GPU user annotation)."""
     from torch.autograd import DeviceType
     host = [e for e in prof.events() if e.name.startswith("collective:")
             and e.device_type == DeviceType.CPU]

@@ -193,7 +193,7 @@ class ShardingPolicy:
         if self.size(axes) == 1:
             return t
         import torch.distributed as dist
-        with torch.profiler.record_function("collective:all_reduce"), \
+        with counting.span("collective:all_reduce"), \
                 counting.record("all-reduce", t):
             buf, back = self._stage(t)
             dist.all_reduce(buf, op={"sum": dist.ReduceOp.SUM,
@@ -207,7 +207,7 @@ class ShardingPolicy:
         if n == 1:
             return t
         import torch.distributed as dist
-        with torch.profiler.record_function("collective:all_gather"), \
+        with counting.span("collective:all_gather"), \
                 counting.record("all-gather", t, n):
             buf, back = self._stage(t)
             parts = [torch.empty_like(buf) for _ in range(n)]

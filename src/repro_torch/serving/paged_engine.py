@@ -25,6 +25,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import counting
 from repro_torch.core.queue_policy import QueueConfig, order_queue
 from repro_torch.core.traces import EngineTrace
 from repro_torch.models import transformer as tfm
@@ -136,9 +137,10 @@ class PagedModelRunner:
         self.padding_waste_tokens += padded - real
 
     def decode(self, tokens, pages, lengths, block_tables, active,
-               placement, source_ids):
-        B = int(tokens.shape[0])
-        self._count_padding(B, int(active.sum()))
+               placement, source_ids, *, real: int):
+        """``real``: the active lanes, counted by the caller on the host
+        (the padding counters read no device tensor)."""
+        self._count_padding(int(tokens.shape[0]), real)
         return tfm.decode_step_paged(
             self.params, self.cfg, tokens, pages, lengths,
             block_tables=block_tables, active=active, placement=placement,
@@ -146,19 +148,23 @@ class PagedModelRunner:
             collect_stats=self.cfg.moe.enabled, ragged=self.ragged_dispatch)
 
     def prefill_chunk(self, batch, pages, block_tables, placement,
-                      source_ids):
+                      source_ids, *, real: int):
+        """``real``: the sum of ``chunk_lens``, from the caller's host
+        array."""
         B, S = (int(batch["tokens"].shape[0]), int(batch["tokens"].shape[1]))
-        self._count_padding(B * S, int(batch["chunk_lens"].sum()))
+        self._count_padding(B * S, real)
         return tfm.prefill_chunk_paged(
             self.params, self.cfg, batch, pages, block_tables=block_tables,
             placement=placement, source_ids=source_ids,
             n_sources=self.n_sources, collect_stats=self.cfg.moe.enabled,
             ragged=self.ragged_dispatch)
 
-    def mixed_step(self, batch, pages, block_tables, placement, source_ids):
-        """One fused mixed-group dispatch (decode + prefill lanes)."""
+    def mixed_step(self, batch, pages, block_tables, placement, source_ids,
+                   *, real: int):
+        """One fused mixed-group dispatch (decode + prefill lanes);
+        ``real`` as for :meth:`prefill_chunk`."""
         B, S = (int(batch["tokens"].shape[0]), int(batch["tokens"].shape[1]))
-        self._count_padding(B * S, int(batch["chunk_lens"].sum()))
+        self._count_padding(B * S, real)
         return tfm.mixed_step_paged(
             self.params, self.cfg, batch, pages, block_tables=block_tables,
             placement=placement, source_ids=source_ids,
@@ -337,6 +343,8 @@ class PagedRealEngine:
             req.export_for_resume()
         req.engine_id = self.engine_id
         req.dispatch_time = now
+        counting.event("request.enqueue", req=req.req_id,
+                       engine=self.engine_id)
         # the full trajectory (prompt + every decode write) must fit both
         # the block table (max_len) and the pool, or the output would be
         # silently truncated by the capacity backstop in _run_decode
@@ -509,28 +517,53 @@ class PagedRealEngine:
         declarative plan on the data plane."""
         if self.dead:
             return []
-        if self.sharing and self.ecfg.register_ttl_s > 0:
-            self.pool.expire_registrations(now)
-        plan = self.planner.plan(now)
-        self.prefix_hit_tokens += plan.prefix_hit_tokens
-        self._stalled_last = plan.n_stalled
-        self.n_stalled_total += plan.n_stalled
-        self._swap_in_blocked_last = plan.swap_in_blocked
-        self.swap_in_blocked_total += plan.swap_in_blocked
-        self._swap_in_bytes_window += sum(rec.nbytes
-                                          for rec in plan.swap_in)
+        with counting.span("engine.step", engine=self.engine_id) as sp:
+            before = self._step_counts() if sp else None
+            with counting.span("engine.plan"):
+                if self.sharing and self.ecfg.register_ttl_s > 0:
+                    self.pool.expire_registrations(now)
+                plan = self.planner.plan(now)
+                self.prefix_hit_tokens += plan.prefix_hit_tokens
+                self._stalled_last = plan.n_stalled
+                self.n_stalled_total += plan.n_stalled
+                self._swap_in_blocked_last = plan.swap_in_blocked
+                self.swap_in_blocked_total += plan.swap_in_blocked
+                self._swap_in_bytes_window += sum(rec.nbytes
+                                                  for rec in plan.swap_in)
 
-        finished: List[Request] = []
-        if plan.mixed_groups:
-            finished.extend(self._run_mixed(plan, now))
-        else:
-            for group in plan.prefill_groups:
-                finished.extend(self._run_prefill_group(group, now))
-            if plan.decode:
-                finished.extend(self._run_decode(plan.decode, now))
-        if plan.has_work:
-            self.step_count += 1
+            finished: List[Request] = []
+            if plan.mixed_groups:
+                finished.extend(self._run_mixed(plan, now))
+            else:
+                for group in plan.prefill_groups:
+                    finished.extend(self._run_prefill_group(group, now))
+                if plan.decode:
+                    finished.extend(self._run_decode(plan.decode, now))
+            if plan.has_work:
+                self.step_count += 1
+            if sp:
+                after = self._step_counts()
+                sp.set(round=counting.inherited("round"), **{
+                    k: b - a for k, a, b in zip(
+                        ("prefill_tokens", "decode_lanes", "dispatches",
+                         "padded_tokens", "real_tokens"), before, after)})
         return finished
+
+    def _step_counts(self):
+        """The counters an ``engine.step`` span reports the deltas of."""
+        rn = self.runner
+        return (self.total_prefill_tokens, self.total_decode_tokens,
+                self.prefill_dispatches + self.decode_dispatches,
+                rn.padded_tokens_total,
+                rn.padded_tokens_total - rn.padding_waste_tokens)
+
+    @staticmethod
+    def _first_token(r: Request, tok: int, now: float) -> None:
+        r.output_tokens = [tok]
+        r.generated = 1
+        if r.first_token_time < 0:   # a resumed request's client saw
+            r.first_token_time = now  # its first token before the crash
+            counting.event("request.first_token", req=r.req_id)
 
     # ---- data-plane calls ------------------------------------------------
     def _run_prefill_group(self, group: List[PrefillLane],
@@ -539,56 +572,64 @@ class PagedRealEngine:
         the runner's (B, S) bucket; padding lanes get all-garbage block
         tables and zero chunk_lens, so their rows write to page 0, attend
         to nothing and are masked out of the MoE statistics."""
-        S = self.runner.bucket_for(max(l.chunk for l in group))
-        B = self.runner.lane_bucket_for(len(group))
-        toks = np.zeros((B, S), np.int32)
-        starts = np.zeros(B, np.int32)
-        lens = np.zeros(B, np.int32)
-        rids: List[Optional[int]] = [None] * B
-        for i, l in enumerate(group):
-            toks[i, :l.chunk] = l.req.prompt_tokens[l.start:l.start + l.chunk]
-            starts[i] = l.start
-            lens[i] = l.chunk
-            rids[i] = l.req.req_id
-        batch = {"tokens": self._dev(toks),
-                 "chunk_starts": self._dev(starts),
-                 "chunk_lens": self._dev(lens)}
-        bt = self._dev(self.pool.block_table_array(
-            rids, self.ecfg.max_blocks_per_req))
-        t0 = time.perf_counter()
-        logits, self.pages, stats = self.runner.prefill_chunk(
-            batch, self.pages, bt, self._dev(self.placement),
-            self._source_ids(B))
-        nxt = torch.argmax(logits, dim=-1).cpu().numpy()  # sync point
-        if self.swap_cost is not None:
-            self.swap_cost.observe_prefill(sum(l.chunk for l in group),
-                                           time.perf_counter() - t0)
-        self.prefill_dispatches += 1
-        self.prefill_lanes_total += len(group)
-        if stats is not None:
-            self.stats_log.append(_stats_to_numpy(stats))
+        with counting.span("engine.prepare"):
+            S = self.runner.bucket_for(max(l.chunk for l in group))
+            B = self.runner.lane_bucket_for(len(group))
+            toks = np.zeros((B, S), np.int32)
+            starts = np.zeros(B, np.int32)
+            lens = np.zeros(B, np.int32)
+            rids: List[Optional[int]] = [None] * B
+            for i, l in enumerate(group):
+                toks[i, :l.chunk] = \
+                    l.req.prompt_tokens[l.start:l.start + l.chunk]
+                starts[i] = l.start
+                lens[i] = l.chunk
+                rids[i] = l.req.req_id
+            batch = {"tokens": self._dev(toks),
+                     "chunk_starts": self._dev(starts),
+                     "chunk_lens": self._dev(lens)}
+            bt = self._dev(self.pool.block_table_array(
+                rids, self.ecfg.max_blocks_per_req))
+            t0 = time.perf_counter()
+            placement, src = self._dev(self.placement), self._source_ids(B)
+        with counting.span("model.launch", kind="prefill") as sp:
+            if sp:
+                sp.set(reqs=rids[:len(group)], shape=(B, S))
+            logits, self.pages, stats = self.runner.prefill_chunk(
+                batch, self.pages, bt, placement, src, real=int(lens.sum()))
+            nxt = torch.argmax(logits, dim=-1)
+        with counting.span("engine.wait"):
+            nxt = nxt.cpu().numpy()  # sync point
+        with counting.span("engine.readback"):
+            if self.swap_cost is not None:
+                self.swap_cost.observe_prefill(sum(l.chunk for l in group),
+                                               time.perf_counter() - t0)
+            self.prefill_dispatches += 1
+            self.prefill_lanes_total += len(group)
+            if stats is not None:
+                self.stats_log.append(_stats_to_numpy(stats))
         finished = []
-        for i, l in enumerate(group):
-            r = l.req
-            r.prefill_done += l.chunk
-            self.total_prefill_tokens += l.chunk
-            if self.sharing:
-                # full pages just completed become shareable (first writer
-                # wins). Mid-life registration is floored to the page
-                # boundary: indexing the in-progress partial page would
-                # force a COW on the very next chunk/decode write into it —
-                # the token-granular tail is registered once at finish.
-                full = r.prefill_done - r.prefill_done % self.ecfg.page_size
-                self.pool.register_prefix(r.req_id, r.prompt_tokens[:full])
-            if r.remaining_prefill == 0:
-                tok = int(nxt[i])
-                r.output_tokens = [tok]
-                r.generated = 1
-                if r.first_token_time < 0:   # a resumed request's client
-                    r.first_token_time = now  # saw its first token pre-crash
-                if r.done:
-                    self._finish(r, now)
-                    finished.append(r)
+        with counting.span("engine.apply"):
+            for i, l in enumerate(group):
+                r = l.req
+                r.prefill_done += l.chunk
+                self.total_prefill_tokens += l.chunk
+                if self.sharing:
+                    # full pages just completed become shareable (first
+                    # writer wins). Mid-life registration is floored to the
+                    # page boundary: indexing the in-progress partial page
+                    # would force a COW on the very next chunk/decode write
+                    # into it — the token-granular tail is registered once
+                    # at finish.
+                    full = r.prefill_done \
+                        - r.prefill_done % self.ecfg.page_size
+                    self.pool.register_prefix(r.req_id,
+                                              r.prompt_tokens[:full])
+                if r.remaining_prefill == 0:
+                    self._first_token(r, int(nxt[i]), now)
+                    if r.done:
+                        self._finish(r, now)
+                        finished.append(r)
         return finished
 
     def _dispatch_mixed_group(self, group: List[PrefillLane]) -> Dict[int, int]:
@@ -597,41 +638,48 @@ class PagedRealEngine:
         all decode) and run ``mixed_step_paged``. Returns req_id -> the
         argmax next token of each lane's chunk-end logits; effect
         application is the caller's job (canonical split order)."""
-        S = self.runner.mixed_bucket_for(max(l.chunk for l in group))
-        B = self.runner.lane_bucket_for(len(group))
-        toks = np.zeros((B, S), np.int32)
-        starts = np.zeros(B, np.int32)
-        lens = np.zeros(B, np.int32)
-        dmask = np.zeros(B, bool)
-        rids: List[Optional[int]] = [None] * B
-        for i, l in enumerate(group):
-            if l.decode:
-                toks[i, 0] = l.req.output_tokens[-1]
-            else:
-                toks[i, :l.chunk] = \
-                    l.req.prompt_tokens[l.start:l.start + l.chunk]
-            starts[i] = l.start
-            lens[i] = l.chunk
-            dmask[i] = l.decode
-            rids[i] = l.req.req_id
-        batch = {"tokens": self._dev(toks),
-                 "chunk_starts": self._dev(starts),
-                 "chunk_lens": self._dev(lens),
-                 "decode_mask": self._dev(dmask)}
-        bt = self._dev(self.pool.block_table_array(
-            rids, self.ecfg.max_blocks_per_req))
-        t0 = time.perf_counter()
-        logits, self.pages, stats = self.runner.mixed_step(
-            batch, self.pages, bt, self._dev(self.placement),
-            self._source_ids(B))
-        nxt = torch.argmax(logits, dim=-1).cpu().numpy()  # sync point
-        if self.swap_cost is not None:
-            self.swap_cost.observe_prefill(int(lens.sum()),
-                                           time.perf_counter() - t0)
-        self.prefill_dispatches += 1
-        self.prefill_lanes_total += len(group)
-        if stats is not None:
-            self.stats_log.append(_stats_to_numpy(stats))
+        with counting.span("engine.prepare"):
+            S = self.runner.mixed_bucket_for(max(l.chunk for l in group))
+            B = self.runner.lane_bucket_for(len(group))
+            toks = np.zeros((B, S), np.int32)
+            starts = np.zeros(B, np.int32)
+            lens = np.zeros(B, np.int32)
+            dmask = np.zeros(B, bool)
+            rids: List[Optional[int]] = [None] * B
+            for i, l in enumerate(group):
+                if l.decode:
+                    toks[i, 0] = l.req.output_tokens[-1]
+                else:
+                    toks[i, :l.chunk] = \
+                        l.req.prompt_tokens[l.start:l.start + l.chunk]
+                starts[i] = l.start
+                lens[i] = l.chunk
+                dmask[i] = l.decode
+                rids[i] = l.req.req_id
+            batch = {"tokens": self._dev(toks),
+                     "chunk_starts": self._dev(starts),
+                     "chunk_lens": self._dev(lens),
+                     "decode_mask": self._dev(dmask)}
+            bt = self._dev(self.pool.block_table_array(
+                rids, self.ecfg.max_blocks_per_req))
+            t0 = time.perf_counter()
+            placement, src = self._dev(self.placement), self._source_ids(B)
+        real = int(lens.sum())
+        with counting.span("model.launch", kind="mixed") as sp:
+            if sp:
+                sp.set(reqs=rids[:len(group)], shape=(B, S))
+            logits, self.pages, stats = self.runner.mixed_step(
+                batch, self.pages, bt, placement, src, real=real)
+            nxt = torch.argmax(logits, dim=-1)
+        with counting.span("engine.wait"):
+            nxt = nxt.cpu().numpy()  # sync point
+        with counting.span("engine.readback"):
+            if self.swap_cost is not None:
+                self.swap_cost.observe_prefill(real, time.perf_counter() - t0)
+            self.prefill_dispatches += 1
+            self.prefill_lanes_total += len(group)
+            if stats is not None:
+                self.stats_log.append(_stats_to_numpy(stats))
         return {l.req.req_id: int(nxt[i]) for i, l in enumerate(group)}
 
     def _run_mixed(self, plan: StepPlan, now: float) -> List[Request]:
@@ -646,63 +694,73 @@ class PagedRealEngine:
         for group in plan.mixed_groups:
             next_tok.update(self._dispatch_mixed_group(group))
         finished: List[Request] = []
-        for l in plan.prefill_lanes:
-            r = l.req
-            r.prefill_done += l.chunk
-            self.total_prefill_tokens += l.chunk
-            if self.sharing:
-                full = r.prefill_done - r.prefill_done % self.ecfg.page_size
-                self.pool.register_prefix(r.req_id, r.prompt_tokens[:full])
-            if r.remaining_prefill == 0:
-                r.output_tokens = [next_tok[r.req_id]]
-                r.generated = 1
-                if r.first_token_time < 0:
-                    r.first_token_time = now
-                if r.done:
+        with counting.span("engine.apply"):
+            for l in plan.prefill_lanes:
+                r = l.req
+                r.prefill_done += l.chunk
+                self.total_prefill_tokens += l.chunk
+                if self.sharing:
+                    full = r.prefill_done \
+                        - r.prefill_done % self.ecfg.page_size
+                    self.pool.register_prefix(r.req_id,
+                                              r.prompt_tokens[:full])
+                if r.remaining_prefill == 0:
+                    self._first_token(r, next_tok[r.req_id], now)
+                    if r.done:
+                        self._finish(r, now)
+                        finished.append(r)
+            for r in plan.decode:
+                r.output_tokens.append(next_tok[r.req_id])
+                r.generated += 1
+                self.total_decode_tokens += 1
+                if r.done or written_kv_len(r) + 1 >= self.ecfg.max_len:
                     self._finish(r, now)
                     finished.append(r)
-        for r in plan.decode:
-            r.output_tokens.append(next_tok[r.req_id])
-            r.generated += 1
-            self.total_decode_tokens += 1
-            if r.done or written_kv_len(r) + 1 >= self.ecfg.max_len:
-                self._finish(r, now)
-                finished.append(r)
         return finished
 
     def _run_decode(self, decode_reqs: List[Request],
                     now: float) -> List[Request]:
         B = self.ecfg.max_batch
         lanes = decode_reqs[:B]
-        tokens = np.zeros(B, np.int32)
-        lengths = np.zeros(B, np.int32)
-        active = np.zeros(B, bool)
-        rids: List[Optional[int]] = [None] * B
-        for i, r in enumerate(lanes):
-            tokens[i] = r.output_tokens[-1]
-            lengths[i] = written_kv_len(r)
-            active[i] = True
-            rids[i] = r.req_id
-        bt = self.pool.block_table_array(rids, self.ecfg.max_blocks_per_req)
-        t0 = time.perf_counter()
-        logits, self.pages, stats = self.runner.decode(
-            self._dev(tokens), self.pages, self._dev(lengths),
-            self._dev(bt), self._dev(active), self._dev(self.placement),
-            self._source_ids(B))
-        nxt = torch.argmax(logits, dim=-1).cpu().numpy()  # sync point
-        self.decode_dispatches += 1
-        if self.swap_cost is not None:
-            self.swap_cost.observe_decode(time.perf_counter() - t0)
-        if stats is not None:
-            self.stats_log.append(_stats_to_numpy(stats))
+        with counting.span("engine.prepare"):
+            tokens = np.zeros(B, np.int32)
+            lengths = np.zeros(B, np.int32)
+            active = np.zeros(B, bool)
+            rids: List[Optional[int]] = [None] * B
+            for i, r in enumerate(lanes):
+                tokens[i] = r.output_tokens[-1]
+                lengths[i] = written_kv_len(r)
+                active[i] = True
+                rids[i] = r.req_id
+            bt = self.pool.block_table_array(rids,
+                                             self.ecfg.max_blocks_per_req)
+            t0 = time.perf_counter()
+            args = (self._dev(tokens), self.pages, self._dev(lengths),
+                    self._dev(bt), self._dev(active),
+                    self._dev(self.placement), self._source_ids(B))
+        with counting.span("model.launch", kind="decode") as sp:
+            if sp:
+                sp.set(reqs=rids[:len(lanes)], shape=(B, 1))
+            logits, self.pages, stats = self.runner.decode(*args,
+                                                           real=len(lanes))
+            nxt = torch.argmax(logits, dim=-1)
+        with counting.span("engine.wait"):
+            nxt = nxt.cpu().numpy()  # sync point
+        with counting.span("engine.readback"):
+            self.decode_dispatches += 1
+            if self.swap_cost is not None:
+                self.swap_cost.observe_decode(time.perf_counter() - t0)
+            if stats is not None:
+                self.stats_log.append(_stats_to_numpy(stats))
         finished = []
-        for i, r in enumerate(lanes):
-            r.output_tokens.append(int(nxt[i]))
-            r.generated += 1
-            self.total_decode_tokens += 1
-            if r.done or written_kv_len(r) + 1 >= self.ecfg.max_len:
-                self._finish(r, now)
-                finished.append(r)
+        with counting.span("engine.apply"):
+            for i, r in enumerate(lanes):
+                r.output_tokens.append(int(nxt[i]))
+                r.generated += 1
+                self.total_decode_tokens += 1
+                if r.done or written_kv_len(r) + 1 >= self.ecfg.max_len:
+                    self._finish(r, now)
+                    finished.append(r)
         return finished
 
     # ---- control-plane surface -------------------------------------------

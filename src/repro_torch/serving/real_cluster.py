@@ -31,6 +31,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from repro_torch import counting
 from repro_torch.core.coordinator import CoordinatorConfig, GimbalCoordinator
 from repro_torch.core.forecast import ForecastConfig, PrefetchConfig
 from repro_torch.core.placement import PlacementConfig
@@ -311,7 +312,10 @@ def _serve_real_cluster(requests, engines, cluster_cfg, metrics, mover):
     ec = ElasticController(table, sched, coordinator=None)
 
     if coord is not None and cc.prefetch:
-        coord.on_prefetch = lambda plan, target: mover.stage(target)
+        def stage(plan, target) -> None:
+            with counting.span("coordinator.migrate", staged=True):
+                mover.stage(target)
+        coord.on_prefetch = stage
 
     def report_trace(e) -> None:
         # delta-based prefix digests: ship a full summary only when the
@@ -358,55 +362,47 @@ def _serve_real_cluster(requests, engines, cluster_cfg, metrics, mover):
     def is_dead(e) -> bool:
         return getattr(e, "dead", False)
 
-    while (pending or orphans or crash_exports
-           or any(e.has_work for e in engines)) and rounds < cc.max_rounds:
-        # ---- 1. scheduled faults (deterministic chaos) -------------------
-        if injector is not None:
-            for eid in injector.crashes(rounds):
-                e = by_id[eid]
-                if not is_dead(e):
-                    crash_exports.setdefault(eid, []).extend(e.fail(now))
-            for eid in injector.recoveries(rounds):
-                e = by_id[eid]
-                if is_dead(e):
-                    e.restart()
-                    # exports never detected (quick recovery) re-dispatch
-                    # now — the restarted engine lost its pool regardless
-                    orphans.extend(crash_exports.pop(eid, []))
-                    if eid not in table.engine_ids:   # drained: rejoin
-                        ec.scale_up(eid, now)
-            for eid in injector.drains(rounds):
-                e = by_id[eid]
-                if not is_dead(e) and not getattr(e, "draining", False):
-                    sched.exclude(eid)
-                    moved = e.drain(now)
-                    tier = getattr(e, "tier", None)
-                    if tier is not None:
-                        drain_swapped[eid] = sum(
-                            1 for r in moved
-                            if tier.holds_request(r.req_id))
-                    orphans.extend(moved)
-            for e in engines:
-                if hasattr(e, "pool"):
-                    e.pool.force_alloc_fail = injector.alloc_fail(
-                        e.engine_id, rounds)
-
-        # drain completion: residents finished -> release pool, leave fleet
+    def inject_faults() -> None:
+        """This round's scheduled faults (deterministic chaos)."""
+        for eid in injector.crashes(rounds):
+            e = by_id[eid]
+            if not is_dead(e):
+                crash_exports.setdefault(eid, []).extend(e.fail(now))
+        for eid in injector.recoveries(rounds):
+            e = by_id[eid]
+            if is_dead(e):
+                e.restart()
+                # exports never detected (quick recovery) re-dispatch
+                # now — the restarted engine lost its pool regardless
+                orphans.extend(crash_exports.pop(eid, []))
+                if eid not in table.engine_ids:   # drained: rejoin
+                    ec.scale_up(eid, now)
+        for eid in injector.drains(rounds):
+            e = by_id[eid]
+            if not is_dead(e) and not getattr(e, "draining", False):
+                sched.exclude(eid)
+                moved = e.drain(now)
+                tier = getattr(e, "tier", None)
+                if tier is not None:
+                    drain_swapped[eid] = sum(
+                        1 for r in moved
+                        if tier.holds_request(r.req_id))
+                orphans.extend(moved)
         for e in engines:
-            if getattr(e, "draining", False) and not e.has_work:
-                e.release()
-                drained_engines.append(e.engine_id)
-                if e.engine_id in table.engine_ids:
-                    ec.scale_down(e.engine_id, now, drain=lambda _: 0,
-                                  swapped=drain_swapped.pop(e.engine_id, 0))
-                mon.unhealthy.discard(e.engine_id)
+            if hasattr(e, "pool"):
+                e.pool.force_alloc_fail = injector.alloc_fail(
+                    e.engine_id, rounds)
 
-        # ---- 2. dispatch arrivals due by now (Algorithm 1 against live
-        # traces; prompt ids let the scheduler score prefix affinity
-        # against the engines' radix-cache summaries). Under cluster-wide
-        # hard KV pressure or an empty fleet, admissions HOLD (FIFO) and
-        # eventually shed with an explicit error — never a crash, never a
-        # dispatch onto a dead engine, never a silent livelock.
+    def dispatch() -> int:
+        """Dispatch arrivals due by now (Algorithm 1 against live traces;
+        prompt ids let the scheduler score prefix affinity against the
+        engines' radix-cache summaries), then re-dispatch recovered
+        requests. Under cluster-wide hard KV pressure or an empty fleet,
+        admissions HOLD (FIFO) and eventually shed with an explicit error —
+        never a crash, never a dispatch onto a dead engine, never a silent
+        livelock. Returns the requests enqueued."""
+        nonlocal shed, orphans, recovered, recovery_recompute_tokens
+        n = 0
         while pending and pending[0].arrival_time <= now:
             r = pending[0]
             healthy = sched.healthy_engines()
@@ -427,8 +423,9 @@ def _serve_real_cluster(requests, engines, cluster_cfg, metrics, mover):
                 break
             pending.pop(0)
             by_id[eid].enqueue(r, now)
+            n += 1
 
-        # ---- 3. re-dispatch recovered requests (capped backoff) ----------
+        # re-dispatch recovered requests (capped backoff)
         if orphans:
             still: List[Request] = []
             for r in orphans:
@@ -453,6 +450,7 @@ def _serve_real_cluster(requests, engines, cluster_cfg, metrics, mover):
                     still.append(r)
                     continue
                 by_id[eid].enqueue(r, now)
+                n += 1
                 if not r.error:            # target may reject at enqueue
                     recovered += 1
                     # tokens this request will prefill again: tier-backed
@@ -462,76 +460,117 @@ def _serve_real_cluster(requests, engines, cluster_cfg, metrics, mover):
                     recovery_recompute_tokens += max(
                         r.prompt_len - r.prefill_done, 0)
             orphans = still
+        return n
 
-        # ---- 4. step the data planes + collect traces --------------------
-        for e in engines:
-            if is_dead(e):
-                continue       # no steps, no traces: staleness will tell
-            straggling = injector is not None and injector.skip_step(
-                e.engine_id, rounds)
-            if not straggling:
-                e.step(now)
-            if not (injector is not None
-                    and injector.drop_trace(e.engine_id, rounds)):
-                report_trace(e)
-            kv_peak = max(kv_peak, e.pool.usage) \
-                if hasattr(e, "pool") else kv_peak
+    while (pending or orphans or crash_exports
+           or any(e.has_work for e in engines)) and rounds < cc.max_rounds:
+        with counting.span("cluster.round", round=rounds) as round_span:
+            # ---- 1. scheduled faults (deterministic chaos) ---------------
+            if injector is not None:
+                with counting.span("cluster.faults"):
+                    inject_faults()
+
+            # drain completion: residents finished -> release pool, leave
+            # the fleet
+            for e in engines:
+                if getattr(e, "draining", False) and not e.has_work:
+                    e.release()
+                    drained_engines.append(e.engine_id)
+                    if e.engine_id in table.engine_ids:
+                        ec.scale_down(
+                            e.engine_id, now, drain=lambda _: 0,
+                            swapped=drain_swapped.pop(e.engine_id, 0))
+                    mon.unhealthy.discard(e.engine_id)
+
+            # ---- 2. dispatch arrivals, 3. re-dispatch recovered ----------
+            with counting.span("scheduler.dispatch") as dispatch_span:
+                n_dispatched = dispatch()
+                dispatch_span.set(dispatched=n_dispatched)
+            round_span.set(dispatched=n_dispatched)
+
+            # ---- 4. step the data planes + collect traces ----------------
+            for e in engines:
+                if is_dead(e):
+                    continue   # no steps, no traces: staleness will tell
+                # the call of the engine's step: in the time outside its
+                # engine.step span, whatever wraps the engine's step
+                with counting.span("cluster.step", engine=e.engine_id):
+                    straggling = injector is not None and \
+                        injector.skip_step(e.engine_id, rounds)
+                    if not straggling:
+                        e.step(now)
+                if not (injector is not None
+                        and injector.drop_trace(e.engine_id, rounds)):
+                    with counting.span("scheduler.report"):
+                        report_trace(e)
+                kv_peak = max(kv_peak, e.pool.usage) \
+                    if hasattr(e, "pool") else kv_peak
+                if coord is not None:
+                    with counting.span("coordinator.stats"):
+                        B, A = e.window_stats()
+                        if B is not None:
+                            coord.profiler.record_step(
+                                B, A, n_tokens=int(B.sum())
+                                // max(mcfg.n_moe_layers, 1)
+                                // max(mcfg.moe.top_k, 1))
+
+            with counting.span("cluster.finished"):
+                drain_finishes()
+
+            # ---- 5. health: exclude+fence stale engines, rejoin fresh ones
+            with counting.span("health.check"):
+                mon.check(now)
+
             if coord is not None:
-                B, A = e.window_stats()
-                if B is not None:
-                    coord.profiler.record_step(
-                        B, A, n_tokens=int(B.sum())
-                        // max(mcfg.n_moe_layers, 1)
-                        // max(mcfg.moe.top_k, 1))
+                with counting.span("coordinator.rebalance"):
+                    migrated, _dur = coord.maybe_rebalance(now)
+                if migrated:
+                    migrations += 1
+                with counting.span("coordinator.prefetch"):
+                    flipped = coord.poll_prefetch(now)
+                if flipped:
+                    migrations += 1  # a flip is still a placement adoption
+                with counting.span("coordinator.migrate"):
+                    perms = np.asarray(coord.placement.permutations())
+                    if not np.array_equal(perms, mover.cur):
+                        mover.adopt(perms)
+                with counting.span("coordinator.pressure"):
+                    if coord._last_rank_load.sum() > 0:
+                        for e in engines:
+                            e.moe_pressure = coord.engine_moe_pressure(
+                                e.engine_id)
 
-        drain_finishes()
+            # ---- 6. livelock watchdog (opt-in) ---------------------------
+            if cc.stall_abort_rounds > 0:
+                marker = progress_marker()
+                if rounds > 0 and marker == last_marker:
+                    stall_streak += 1
+                    if stall_streak >= cc.stall_abort_rounds:
+                        for e in engines:
+                            if hasattr(e, "fail") and e.has_work:
+                                orphans.extend(e.fail(now))
+                        for r in (orphans + pending
+                                  + [q for v in crash_exports.values()
+                                     for q in v]):
+                            quarantine(r, "cluster_livelock")
+                        orphans, pending = [], []
+                        crash_exports.clear()
+                        break
+                else:
+                    stall_streak = 0
+                last_marker = marker
+            elif rounds == 0:
+                last_marker = progress_marker()
 
-        # ---- 5. health: exclude+fence stale engines, rejoin fresh ones ---
-        mon.check(now)
+            # ---- 7. periodic control-plane snapshot ----------------------
+            if cc.snapshot_every_rounds > 0 and cc.snapshot_path \
+                    and rounds > 0 and rounds % cc.snapshot_every_rounds == 0:
+                with counting.span("cluster.snapshot"):
+                    _save_cluster_state(cc.snapshot_path, sched, coord,
+                                        table, rounds)
 
-        if coord is not None:
-            migrated, _dur = coord.maybe_rebalance(now)
-            if migrated:
-                migrations += 1
-            if coord.poll_prefetch(now):
-                migrations += 1    # a flip is still a placement adoption
-            perms = np.asarray(coord.placement.permutations())
-            if not np.array_equal(perms, mover.cur):
-                mover.adopt(perms)
-            if coord._last_rank_load.sum() > 0:
-                for e in engines:
-                    e.moe_pressure = coord.engine_moe_pressure(e.engine_id)
-
-        # ---- 6. livelock watchdog (opt-in) -------------------------------
-        if cc.stall_abort_rounds > 0:
-            marker = progress_marker()
-            if rounds > 0 and marker == last_marker:
-                stall_streak += 1
-                if stall_streak >= cc.stall_abort_rounds:
-                    for e in engines:
-                        if hasattr(e, "fail") and e.has_work:
-                            orphans.extend(e.fail(now))
-                    for r in (orphans + pending
-                              + [q for v in crash_exports.values()
-                                 for q in v]):
-                        quarantine(r, "cluster_livelock")
-                    orphans, pending = [], []
-                    crash_exports.clear()
-                    break
-            else:
-                stall_streak = 0
-            last_marker = marker
-        elif rounds == 0:
-            last_marker = progress_marker()
-
-        # ---- 7. periodic control-plane snapshot --------------------------
-        if cc.snapshot_every_rounds > 0 and cc.snapshot_path \
-                and rounds > 0 and rounds % cc.snapshot_every_rounds == 0:
-            _save_cluster_state(cc.snapshot_path, sched, coord, table,
-                                rounds)
-
-        now += cc.dt
-        rounds += 1
+            now += cc.dt
+            rounds += 1
 
     drain_finishes()
     # rejected/shed/quarantined requests (error set) must not pollute the

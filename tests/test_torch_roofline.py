@@ -114,6 +114,29 @@ def test_collectives_count_the_bytes_of_the_calls_made(mesh, kind, axes,
     assert c.bytes == 0 and c.flops == 0     # no memory traffic counted
 
 
+def test_collectives_are_spans_the_profiler_shows(mesh):
+    """The ``collective:*`` ranges ``chip_smoke.py`` reads: spans of
+    ``counting``, which a profiler session records and shows."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import counting
+    pol = ShardingPolicy(mesh=mesh, batch_axes=("data",), fsdp_axes=())
+    counting.clear_spans()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        pol.all_reduce(torch.ones(4), "model")
+        pol.all_gather(torch.ones(4), "data", 0)
+    host = sorted(e.name for e in prof.events()
+                  if e.name.startswith("collective:")
+                  and e.device_type == DeviceType.CPU)
+    assert host == ["collective:all_gather", "collective:all_reduce"]
+    assert [s.name for s in counting.spans()] == ["collective:all_reduce",
+                                                  "collective:all_gather"]
+    counting.clear_spans()
+    pol.all_reduce(torch.ones(4), "model")      # nothing records now
+    assert counting.spans() == []
+
+
 def test_collectives_over_one_rank_record_nothing(mesh):
     from repro_torch.launch.mesh import Mesh
     one = Mesh((1, 8), ("data", "model"))
