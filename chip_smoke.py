@@ -17,7 +17,12 @@
    cores or CUDA cores); the decode kernels also get a row at a
    32768-token context, and each request's output row is held to its own
    norm as well (``decode_route.row_rel_err``), since at long contexts the
-   outputs are far smaller than the absolute bf16 bar;
+   outputs are far smaller than the absolute bf16 bar; the chunked-prefill
+   attention (``paged_prefill_attention``) gets rows at the serving cells'
+   chunks over 8448-slot block tables (``PREFILL_ROWS``), its bound the
+   causal FLOPs of the live context against the live pages' bytes, on bf16
+   and on int8 pages, and every serve counts its launches (one a layer a
+   prefill dispatch, on bf16 and int8 pages alike);
 3. checks the port end to end on a small input: a float32 twin of the
    model served on the card through the kernels and on the CPU through the
    plain versions must give the same token streams and statistics, on one
@@ -485,6 +490,80 @@ def check_paged_decode(timer, dtype, int8_pages=False, long_ctx=False,
             "tc_expected": tc_eligible(dtype, hd, Hq // Hkv)}
 
 
+# (B, S, chunk starts, Hq, Hkv, what) of the paged prefill rows: the
+# serving cells' chunks (a 2048-token chunk from 0, two 1024-token chunks
+# after 4096 tokens, eight 256-token chunks at mixed starts) at qwen3-moe's
+# heads, then a 2048-token chunk at qwen3-8b's (G = 4) and llama4's (G = 5)
+PREFILL_ROWS = (
+    (1, 2048, [0], 32, 4, "qwen3-moe"),
+    (2, 1024, [4096, 4096], 32, 4, "qwen3-moe"),
+    (8, 256, [0, 300, 900, 1500, 2600, 4000, 6100, 8000], 32, 4,
+     "qwen3-moe"),
+    (1, 2048, [0], 32, 8, "qwen3-8b"),
+    (1, 2048, [0], 40, 8, "llama4"))
+
+
+def check_paged_prefill(timer, dtype, B, S, starts, Hq, Hkv, which,
+                        int8_pages=False):
+    """``paged_prefill_attention`` at one of ``PREFILL_ROWS``: 528-block
+    tables of 16-token pages (8448 slots a lane, the cells' engines) whose
+    entries past each lane's live pages are the garbage page 0, every row
+    of each chunk real; pages in q's type or int8 with f32 scales. Held to
+    the plain twin (the whole table gathered and dequantized, then
+    ``flash_attention``); bound: the causal FLOPs of the live context at
+    the type's peak against the live pages' bytes."""
+    from repro_torch.kernels.decode_route import row_rel_err
+    from repro_torch.kernels.kv_pack import pack_kv_plain
+    from repro_torch.kernels.paged_prefill import (
+        paged_prefill_attention, paged_prefill_attention_plain,
+        paged_prefill_cost, tc_eligible)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    hd, ps, NB = 128, 16, 528
+    P = B * NB + 1
+    q = torch.randn(B, S, Hq, hd, generator=g, device="cuda").to(dtype)
+    kp = torch.randn(P, ps, Hkv, hd, generator=g, device="cuda").to(dtype)
+    vp = torch.randn(P, ps, Hkv, hd, generator=g, device="cuda").to(dtype)
+    scales = {}
+    if int8_pages:
+        kp, ks = pack_kv_plain(kp)
+        vp, vs = pack_kv_plain(vp)
+        scales = dict(k_scales=ks, v_scales=vs)
+    perm = torch.randperm(P - 1, generator=g, device="cuda") + 1
+    bt = torch.zeros(B, NB, dtype=torch.int32, device="cuda")
+    used = 0
+    for b, s0 in enumerate(starts):
+        n = -(-(s0 + S) // ps)
+        bt[b, :n] = perm[used:used + n].to(torch.int32)
+        used += n
+    st = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    ctx = st + S
+    args = (q, kp, vp, bt, st, ctx)
+    tc_before = paged_prefill_attention.tc_launches
+    out = paged_prefill_attention(*args, **scales)
+    route = route_name(paged_prefill_attention.tc_launches - tc_before)
+    ref = paged_prefill_attention_plain(*args, **scales)
+    torch.cuda.synchronize()
+    err = max_err(out, ref)
+    rel = row_rel_err(out.flatten(0, 1), ref.flatten(0, 1))
+    del ref
+    ops, nbytes = paged_prefill_cost(B, S, Hq, Hkv, hd, NB, starts,
+                                     [S] * B, q.element_size(),
+                                     kp.element_size(), int8_pages)
+    run = lambda: paged_prefill_attention(*args, **scales)  # noqa: E731
+    pages = ", int8 pages + f32 scales" if int8_pages else ""
+    return {"shape": f"{which}: B={B} S={S} starts={starts} Hq={Hq} "
+                     f"Hkv={Hkv} hd={hd} ps={ps} NB={NB}{pages}",
+            "err": err, "row_rel_err": rel,
+            "ms": timer(run),
+            **device_times(timer, run, match=("paged_prefill",),
+                           n_kernels=1),
+            "plain_ms": timer(lambda: paged_prefill_attention_plain(
+                *args, **scales)),
+            "bound": bound_ms(nbytes, ops, str(dtype).split(".")[1]),
+            "library_ms": None, "route": route,
+            "tc_expected": tc_eligible(dtype, hd)}
+
+
 def dispatch_layout(T, K, E, D, dtype, g):
     from repro_torch.kernels.moe_dispatch import pick_row_block, ragged_dispatch
     logits = torch.randn(T, E, generator=g, device="cuda")
@@ -892,7 +971,7 @@ def kernel_phase():
     timer = Timer()
     results = {"paged_decode": [], "moe_gmm_ragged": [],
                "source_expert_count": [], "pack_kv": [], "unpack_kv": [],
-               "flash_decode": [], "moe_gmm": []}
+               "flash_decode": [], "moe_gmm": [], "paged_prefill": []}
 
     def record(kname, dt, r):
         tol = TOL.get(dt.split("/")[0], 0.0)
@@ -925,7 +1004,7 @@ def kernel_phase():
                                  f"{tol}){rel}")
         # bf16 takes the tensor cores wherever tc_eligible admits the
         # shape (hd 256 does not), and nothing else does
-        if kname.endswith("_decode") and \
+        if kname in ("paged_decode", "flash_decode", "paged_prefill") and \
                 (r["route"] == "tensor cores") != r["tc_expected"]:
             raise AssertionError(f"{kname} [{dt}] {r['shape']}: took the "
                                  f"{r['route']} (tensor cores expected: "
@@ -978,6 +1057,26 @@ def kernel_phase():
     for T, K in ((8, 8), (256, 8), (2048, 8), (2048, 1), (8, 1), (512, 1)):
         record("source_expert_count", "int32",
                check_stats(timer, T, K))
+    # the chunked-prefill attention at the cells' shapes (bf16, the tensor
+    # cores), then its first shape in f32 (the CUDA cores), then int8 pages
+    # (the int8 cluster serve's and llama4's) on both routes
+    for B, S, starts, Hq, Hkv, which in PREFILL_ROWS:
+        record("paged_prefill", "bfloat16",
+               check_paged_prefill(timer, torch.bfloat16, B, S, starts, Hq,
+                                   Hkv, which))
+        torch.cuda.empty_cache()
+    B, S, starts, Hq, Hkv, which = PREFILL_ROWS[0]
+    record("paged_prefill", "float32",
+           check_paged_prefill(timer, torch.float32, B, S, starts, Hq, Hkv,
+                               which))
+    torch.cuda.empty_cache()
+    for i, dtype in ((0, torch.bfloat16), (4, torch.bfloat16),
+                     (0, torch.float32)):
+        B, S, starts, Hq, Hkv, which = PREFILL_ROWS[i]
+        record("paged_prefill", str(dtype).split(".")[1] + "/int8",
+               check_paged_prefill(timer, dtype, B, S, starts, Hq, Hkv,
+                                   which, int8_pages=True))
+        torch.cuda.empty_cache()
     llama4_kernel_rows(timer, record)
     dense_families_kernel_rows(timer, record)
     other_families_kernel_rows(timer, record)
@@ -1766,7 +1865,12 @@ def cluster_phase(args, cfg, params, counters):
         raise AssertionError(f"cluster: an engine served nothing "
                              f"({sig['per_engine']})")
     for name, n in launches.items():
-        if n <= 1:
+        if name == "unpack_kv":          # the prefill kernel reads int8
+            if n:
+                raise AssertionError(f"cluster: kernel {name} launched {n} "
+                                     "times (int8 pages are read by "
+                                     "paged_prefill)")
+        elif n <= 1:
             raise AssertionError(f"cluster: kernel {name} launched {n} "
                                  "times")
     check_routes("cluster", launches, tc,
@@ -2462,10 +2566,14 @@ def llama4_serve_phase(args, counters):
         raise AssertionError(f"llama4_serve: an engine served nothing "
                              f"({sig['per_engine']})")
     for name in ("paged_decode", "moe_gmm_ragged", "source_expert_count",
-                 "pack_kv", "unpack_kv"):        # the paged path's five
+                 "pack_kv", "paged_prefill"):    # the paged path's five
         if launches[name] <= 1:
             raise AssertionError(f"llama4_serve: kernel {name} launched "
                                  f"{launches[name]} times")
+    if launches["unpack_kv"]:
+        raise AssertionError(f"llama4_serve: unpack_kv launched "
+                             f"{launches['unpack_kv']} times (int8 pages are "
+                             "read by paged_prefill)")
     check_routes("llama4_serve", launches, tc,
                  ("moe_gmm_ragged", "paged_decode"))
     slack = 64 << 20
@@ -2728,8 +2836,8 @@ def dense_families_phase(args, counters):
         ecfg = PagedEngineConfig(**DENSE_PAGED, kv_dtype=kv, device="cuda")
         reqs = make_requests(cfg, 8, 256, 1024, 32, seed=args.seed + 5,
                              gap=0.1)
-        needed = ("paged_decode",) + (("pack_kv", "unpack_kv")
-                                      if kv == "int8" else ())
+        needed = ("paged_decode", "paged_prefill") + (
+            ("pack_kv",) if kv == "int8" else ())
         add(family_serve(
             f"qwen3-8b, paged {'int8' if kv == 'int8' else 'bf16'} pages",
             cfg, reqs, counters,
@@ -5174,6 +5282,7 @@ def main() -> int:
     from repro_torch.kernels.kv_pack import pack_kv, unpack_kv
     from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_ragged
     from repro_torch.kernels.paged_decode import paged_decode
+    from repro_torch.kernels.paged_prefill import paged_prefill_attention
     from repro_torch.kernels.source_expert_count import source_expert_count
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5204,7 +5313,8 @@ def main() -> int:
     phase_done("reference")
     counters = {"paged_decode": paged_decode,
                 "moe_gmm_ragged": moe_gmm_ragged,
-                "source_expert_count": source_expert_count}
+                "source_expert_count": source_expert_count,
+                "paged_prefill": paged_prefill_attention}
     serve_launches, serve_tc, cfg, params = serve_phase(args, counters)
     phase_done("serve (with its profiled rerun)")
     counters.update(pack_kv=pack_kv, unpack_kv=unpack_kv)
@@ -5268,11 +5378,16 @@ def main() -> int:
                          "src/repro/kernels/flash_decode.py:22"),
         "moe_gmm": ("src/repro_torch/csrc/moe_gmm.cu",
                     "src/repro/kernels/moe_gmm.py:34"),
+        "paged_prefill": ("src/repro_torch/csrc/paged_prefill.cu",
+                          "none: the reference's chunked-prefill attention "
+                          "is plain JAX (src/repro/models/transformer.py "
+                          "_paged_attention)"),
     }
     kernels = []
     for name, rows in results.items():
         main_row = rows[0][1]          # bf16 at the first serving shape
-        route_key = "gmm_route" if "gmm" in name else "decode_route"
+        route_key = "gmm_route" if "gmm" in name else \
+            "prefill_route" if name == "paged_prefill" else "decode_route"
         routes = {}
         if name in main_tc:            # the GEMMs' and decode kernels' routes
             routes = {"tc_launches": main_tc[name],

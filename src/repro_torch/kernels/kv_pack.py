@@ -14,8 +14,9 @@ the rows of K and V and stores codes and scales in place, in one launch.
 ``pack_kv_into_ring`` is the same write into a dense ring cache.
 ``pack_kv`` is the same quantization into fresh tensors, the counterpart
 of the reference's ``pack_kv_pallas``. ``unpack_kv`` is the dequantization
-of gathered pages in chunked prefill (paged decode dequantizes inside its
-own kernel). Each launches ``csrc/kv_pack.cu`` on a CUDA tensor and runs
+of gathered pages in the plain chunked prefill
+(``paged_prefill_attention_plain``; the paged decode and prefill kernels
+dequantize inside themselves). Each launches ``csrc/kv_pack.cu`` on a CUDA tensor and runs
 its plain version on a CPU tensor; ``pack_kv.launches`` counts the
 launches of both pack entries.
 """

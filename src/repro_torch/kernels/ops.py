@@ -25,7 +25,7 @@ from typing import Dict, Iterable
 import torch
 
 KERNELS = ("paged_decode", "flash_decode", "moe_gmm", "source_expert_count",
-           "kv_pack")
+           "kv_pack", "paged_prefill")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -61,6 +61,11 @@ _ENTRIES = {
     "pack_kv_paged": ("kv_pack", [_P] * 9 + [_L] + [_I] * 8 + [_P]),
     # q, s, out, rows, hd, dtype, device, stream
     "unpack_kv": ("kv_pack", [_P] * 3 + [_L] + [_I] * 3 + [_P]),
+    # q, k_pages, v_pages, k_scales, v_scales, block_tables, chunk_starts,
+    # ctx_lens, out, B, S, Hq, Hkv, hd, ps, NB, scale, dtype, quant, device,
+    # stream
+    "paged_prefill": ("paged_prefill",
+                      [_P] * 9 + [_I] * 7 + [_F, _I, _I, _I, _P]),
 }
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -60,9 +60,9 @@ from repro_torch.distributed.sharding import (drop_leading, fsdp_plan,
                                                gather_leaves, grad_entry,
                                                param_specs)
 from repro_torch.kernels.kv_pack import (pack_kv_into_pages,
-                                         pack_kv_into_ring, page_slots,
-                                         unpack_kv)
+                                         pack_kv_into_ring, page_slots)
 from repro_torch.kernels.paged_decode import paged_decode
+from repro_torch.kernels.paged_prefill import paged_prefill_attention
 from repro_torch.models import moe as moe_mod
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.models.attention import (decode_attention,
@@ -412,14 +412,15 @@ def _paged_attention(cfg, q, k, v, positions, cache, mode, paged):
 
     int8 pools (``"k_scale" in cache``) quantize each written row and store
     its codes and per-(token, head) scale through ``pack_kv_into_pages``,
-    one launch on the card; reads dequantize on the fly (in the kernel for
-    decode, through ``unpack_kv`` after the gather for chunked prefill).
+    one launch on the card; reads dequantize on the fly, in the decode and
+    the chunked-prefill kernels.
+    Chunked prefill needs ``paged["chunk_starts"]`` (B,): row i of lane b
+    sits at position chunk_starts[b] + i.
     """
     B, S = positions.shape
     pk, pv = cache["k"], cache["v"]
     ps = pk.shape[1]
     bt = paged["block_tables"].to(torch.int32).contiguous()    # (B, NB)
-    NB = bt.shape[1]
     valid = paged["valid"]                                      # (B, S)
     ctx = paged["ctx_lens"].to(torch.int32).contiguous()        # (B,)
     Hkv, hd = pk.shape[2], pk.shape[3]
@@ -437,20 +438,13 @@ def _paged_attention(cfg, q, k, v, positions, cache, mode, paged):
         out = paged_decode(q[:, 0].contiguous(), pk, pv, bt, ctx,
                            k_scales=cks, v_scales=cvs)
         return out[:, None], cache
-    # chunked prefill: dense gather of the request's pages (prior context +
-    # the chunk just written), causal mask via absolute positions
-    L = NB * ps
-    btl = bt.long()
-    kd = pk[btl].reshape(B, L, Hkv, hd)
-    vd = pv[btl].reshape(B, L, Hkv, hd)
-    if quant:                                          # dequant the gather
-        kd = unpack_kv(kd, cks[btl].reshape(B, L, Hkv), q.dtype)
-        vd = unpack_kv(vd, cvs[btl].reshape(B, L, Hkv), q.dtype)
-    kpos = torch.arange(L, dtype=torch.int32, device=q.device)[None]
-    kpos = torch.where(kpos < ctx[:, None], kpos, torch.full_like(kpos, -1))
-    out = flash_attention(q, kd, vd, q_pos=positions, k_pos=kpos,
-                          causal=True, window=0,
-                          softcap_val=cfg.attn_logit_softcap)
+    # chunked prefill: each lane's chunk (the rows of positions start + i)
+    # against its pages, the chunk just written included, through the
+    # paged prefill kernel, which reads live pages only
+    starts = paged["chunk_starts"].to(torch.int32).contiguous()
+    out = paged_prefill_attention(q.contiguous(), pk, pv, bt, starts, ctx,
+                                  k_scales=cks, v_scales=cvs,
+                                  softcap=cfg.attn_logit_softcap)
     dm = paged.get("decode_mask")
     if dm is not None:
         # mixed fused step: decode rows are 1-token lanes whose attention
@@ -1003,6 +997,7 @@ def prefill_chunk_paged(params, cfg: ModelConfig, batch, pages, *,
     positions = starts[:, None] + ar
     paged = {"block_tables": block_tables,
              "valid": ar < lens[:, None],
+             "chunk_starts": starts,
              "ctx_lens": starts + lens,
              "decode_mask": batch.get("decode_mask")}
     if placement is None:

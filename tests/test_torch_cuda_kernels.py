@@ -885,3 +885,185 @@ def test_wrappers_raise_on_bad_input(cuda):
         flash_decode(q, kc, kc, ctx[:, None], ctx)
     with pytest.raises(TypeError, match="int32"):
         flash_decode(q, kc, kc, bt.repeat(1, 4), ctx)
+
+
+# (Hq, Hkv, hd, S, NB, chunk starts, chunk lengths) of a paged prefill
+# call, ps = 16: chunks from 0 and from mid-page, contexts no multiple of
+# the page size, rows past a chunk, a padding lane (0, 0); a lane whose
+# chunk starts at 8000 of 8448 slots and one that ends at the last slot;
+# a causal diagonal inside one 64-slot tile (start 10, 20 rows)
+PREFILL_CASES = {
+    "qwen3-moe G=8": (32, 4, 128, 64, 20, [0, 37, 100, 0], [64, 30, 61, 0]),
+    "llama4 G=5": (40, 8, 128, 64, 20, [0, 37, 100, 0], [64, 30, 61, 0]),
+    "qwen3-8b G=4": (32, 8, 128, 64, 20, [0, 37, 100, 0], [64, 30, 61, 0]),
+    "qwen1.5 G=1": (40, 40, 128, 64, 20, [0, 37, 100, 0], [64, 30, 61, 0]),
+    "8448-slot tables": (32, 4, 128, 256, 528, [8000, 8192, 0],
+                         [256, 256, 200]),
+    "diagonal in one tile": (32, 8, 128, 32, 4, [10, 0], [20, 32]),
+    "hd 64": (16, 2, 64, 48, 8, [5, 0, 40], [43, 17, 48]),
+    "hd 32": (12, 4, 32, 40, 8, [0, 21], [40, 33]),
+    "hd 16 (CUDA cores)": (4, 2, 16, 24, 6, [0, 9, 0], [24, 15, 0]),
+    "hd 48 (CUDA cores)": (6, 2, 48, 24, 6, [3, 0], [21, 24]),
+}
+
+
+def _prefill_inputs(cuda, dtype, Hq, Hkv, hd, S, NB, starts, lens, seed):
+    """q, a pool whose page 0 holds garbage, and block tables with each
+    lane's live pages, distinct, then page 0 past them."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    B, ps = len(starts), 16
+    P = B * NB + 1
+    q = torch.randn(B, S, Hq, hd, generator=g, device=cuda).to(dtype)
+    kp = torch.randn(P, ps, Hkv, hd, generator=g, device=cuda).to(dtype)
+    vp = torch.randn(P, ps, Hkv, hd, generator=g, device=cuda).to(dtype)
+    free = list(np.random.default_rng(seed).permutation(np.arange(1, P)))
+    bt = np.zeros((B, NB), np.int32)
+    for b, (s, n) in enumerate(zip(starts, lens)):
+        for j in range(-(-(s + n) // ps)):
+            bt[b, j] = free.pop()
+    st = torch.tensor(starts, dtype=torch.int32, device=cuda)
+    ctx = st + torch.tensor(lens, dtype=torch.int32, device=cuda)
+    return q, kp, vp, torch.as_tensor(bt, device=cuda), st, ctx
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", list(PREFILL_CASES))
+def test_paged_prefill_kernel(cuda, dtype, case):
+    """The kernel against its plain twin on every real row (within the
+    dtype's bar, and each (lane, token) row within ``ROW_TOL`` of its own
+    norm); rows past a chunk and padding lanes exact zeros."""
+    from repro_torch.kernels.decode_route import ROW_TOL, row_rel_err
+    from repro_torch.kernels.paged_prefill import (
+        TC_HEAD_DIMS, paged_prefill_attention, paged_prefill_attention_plain)
+    Hq, Hkv, hd, S, NB, starts, lens = PREFILL_CASES[case]
+    args = _prefill_inputs(cuda, dtype, Hq, Hkv, hd, S, NB, starts, lens,
+                           seed=hd + Hq)
+    before = (paged_prefill_attention.launches,
+              paged_prefill_attention.tc_launches)
+    out = paged_prefill_attention(*args)
+    tc = dtype == torch.bfloat16 and hd in TC_HEAD_DIMS
+    assert (paged_prefill_attention.launches,
+            paged_prefill_attention.tc_launches) == (before[0] + 1,
+                                                     before[1] + tc)
+    ref = paged_prefill_attention_plain(*args)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == ref.shape
+    for b, n in enumerate(lens):
+        assert torch.equal(out[b, n:], torch.zeros_like(out[b, n:]))
+        if n:
+            torch.testing.assert_close(out[b, :n].float(),
+                                       ref[b, :n].float(), rtol=TOL[dtype],
+                                       atol=TOL[dtype])
+            assert row_rel_err(out[b, :n], ref[b, :n]) <= ROW_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", list(PREFILL_CASES))
+def test_paged_prefill_kernel_int8(cuda, dtype, case):
+    """Int8 pages with f32 scales: the kernel, which dequantizes each live
+    slot as ``unpack_kv`` does, against its plain twin (the whole table
+    gathered and unpacked), on the route of q's type."""
+    from repro_torch.kernels.decode_route import ROW_TOL, row_rel_err
+    from repro_torch.kernels.kv_pack import pack_kv_plain
+    from repro_torch.kernels.paged_prefill import (
+        TC_HEAD_DIMS, paged_prefill_attention, paged_prefill_attention_plain)
+    Hq, Hkv, hd, S, NB, starts, lens = PREFILL_CASES[case]
+    q, kp, vp, bt, st, ctx = _prefill_inputs(cuda, dtype, Hq, Hkv, hd, S,
+                                             NB, starts, lens,
+                                             seed=hd + Hq + 1)
+    kp, ks = pack_kv_plain(kp)
+    vp, vs = pack_kv_plain(vp)
+    args = (q, kp, vp, bt, st, ctx)
+    before = (paged_prefill_attention.launches,
+              paged_prefill_attention.tc_launches)
+    out = paged_prefill_attention(*args, k_scales=ks, v_scales=vs)
+    tc = dtype == torch.bfloat16 and hd in TC_HEAD_DIMS
+    assert (paged_prefill_attention.launches,
+            paged_prefill_attention.tc_launches) == (before[0] + 1,
+                                                     before[1] + tc)
+    ref = paged_prefill_attention_plain(*args, k_scales=ks, v_scales=vs)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == ref.shape
+    for b, n in enumerate(lens):
+        assert torch.equal(out[b, n:], torch.zeros_like(out[b, n:]))
+        if n:
+            torch.testing.assert_close(out[b, :n].float(),
+                                       ref[b, :n].float(), rtol=TOL[dtype],
+                                       atol=TOL[dtype])
+            assert row_rel_err(out[b, :n], ref[b, :n]) <= ROW_TOL[dtype]
+
+
+def test_paged_prefill_counts_one_launch_a_layer(cuda):
+    """``prefill_chunk_paged`` and ``mixed_step_paged`` on the card, on bf16
+    and on int8 pages: one ``paged_prefill_attention`` launch a layer, on
+    the tensor cores at a bf16 head width of 32 (the mixed step's decode
+    rows still go through ``paged_decode``), and no ``unpack_kv``."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.kv_pack import unpack_kv
+    from repro_torch.kernels.paged_decode import paged_decode
+    from repro_torch.kernels.paged_prefill import paged_prefill_attention
+    from repro_torch.models import transformer as tfm
+    cfg = dataclasses.replace(get_smoke_config("qwen3-moe-30b-a3b"),
+                              head_dim=32)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    params = tfm.init_params(cfg, generator=g, device=cuda)
+    for kv_dtype in ("auto", "int8"):
+        unpacked = unpack_kv.launches
+        _count_prefill_launches(tfm, cfg, params, g, cuda, kv_dtype,
+                                paged_prefill_attention, paged_decode)
+        assert unpack_kv.launches == unpacked
+
+
+def _count_prefill_launches(tfm, cfg, params, g, cuda, kv_dtype,
+                            paged_prefill_attention, paged_decode):
+    pages = tfm.init_paged_cache(cfg, 9, 16, kv_dtype=kv_dtype, device=cuda)
+    bt = torch.tensor([[1, 2, 0, 0], [3, 4, 5, 0]], dtype=torch.int32,
+                      device=cuda)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 24),
+                                     generator=g, device=cuda),
+             "chunk_starts": torch.tensor([0, 9], device=cuda),
+             "chunk_lens": torch.tensor([20, 24], device=cuda)}
+    before = (paged_prefill_attention.launches,
+              paged_prefill_attention.tc_launches, paged_decode.launches)
+    logits, pages, _ = tfm.prefill_chunk_paged(params, cfg, batch, pages,
+                                               block_tables=bt)
+    n = cfg.n_layers
+    assert (paged_prefill_attention.launches,
+            paged_prefill_attention.tc_launches, paged_decode.launches) == (
+        before[0] + n, before[1] + n, before[2])
+    batch = {"tokens": batch["tokens"][:, :8],
+             "chunk_starts": torch.tensor([20, 33], device=cuda),
+             "chunk_lens": torch.tensor([1, 8], device=cuda),
+             "decode_mask": torch.tensor([True, False], device=cuda)}
+    logits, pages, _ = tfm.mixed_step_paged(params, cfg, batch, pages,
+                                            block_tables=bt)
+    assert (paged_prefill_attention.launches,
+            paged_prefill_attention.tc_launches, paged_decode.launches) == (
+        before[0] + 2 * n, before[1] + 2 * n, before[2] + n)
+    torch.cuda.synchronize()
+    assert torch.isfinite(logits).all()
+
+
+def test_paged_prefill_raises_on_bad_input(cuda):
+    from repro_torch.kernels.paged_prefill import paged_prefill_attention
+    q = torch.zeros(2, 4, 4, 16, device=cuda)
+    kp = torch.zeros(3, 8, 2, 16, device=cuda)
+    bt = torch.zeros(2, 2, dtype=torch.int32, device=cuda)
+    n = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="softcap"):
+        paged_prefill_attention(q, kp, kp, bt, n, n, softcap=50.0)
+    with pytest.raises(TypeError, match="int32"):
+        paged_prefill_attention(q, kp, kp, bt.long(), n, n)
+    with pytest.raises(TypeError, match="int8"):
+        paged_prefill_attention(q, kp.to(torch.int8), kp.to(torch.int8), bt,
+                                n, n)
+    k8, sc = kp.to(torch.int8), torch.ones(3, 8, 2, device=cuda)
+    with pytest.raises(ValueError, match="k_scales"):
+        paged_prefill_attention(q, k8, k8, bt, n, n, k_scales=sc,
+                                v_scales=sc[:2])
+    with pytest.raises(ValueError, match="without"):
+        paged_prefill_attention(q, kp, kp, bt, n, n, v_scales=sc)
+    with pytest.raises(ValueError, match="does not fit"):
+        paged_prefill_attention(q, kp[..., :8], kp[..., :8], bt, n, n)
