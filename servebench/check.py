@@ -12,15 +12,18 @@ section; ``PERF.md`` gives the readings each was set from):
   router's top k, the expert dispatch and GEMMs, and the LM head.
 * ``routing_mismatch_share`` (MoE): every prefill dispatch whose lanes
   all belong to the sampled requests, in the window or its ramp: the
-  per-layer expert counts B that the dispatch logged for the coordinator,
-  held to the counts of the experts the reference's router picks at the
-  same prompt positions. The share of the dispatch's routed slots (layers
-  x tokens x top k) that sit on another expert; ``routed_tokens`` says how
-  many prompt tokens it covered.
+  expert counts B of each routing layer that the dispatch logged for the
+  coordinator, held to the counts of the experts the reference's router
+  picks at the same prompt positions. The share of the dispatch's routed
+  slots (routing layers x tokens x top k) that sit on another expert;
+  ``routed_tokens`` says how many prompt tokens it covered.
 * ``stats_mismatches``: every (B, A) window statistic the coordinator was
-  fed in the window, held to what that step served: each layer's B sums to
-  top-k times the tokens the engine ran, the engine's own row of A equals
-  B, and every other row of A is zero. Exact, so its limit is 0.
+  fed in the window, held to what that step served: each routing layer's
+  B sums to top-k times the tokens the engine ran, the engine's own row of
+  A equals B, and every other row of A is zero. Exact, so its limit is 0.
+
+The experts, top k and routing layers are the architecture's MoE shape
+(``arch/<name>.py`` ``moe``).
 
 ``judge(..., control=True)`` puts the control in the program's place: the
 reference on fp8 operands (``reference.py``) gives the tokens and the
@@ -66,10 +69,10 @@ def sample(run) -> List[dict]:
 
 def stats_mismatches(run) -> int:
     """Window statistics that disagree with the steps that made them."""
-    cfg = run.cell.config
-    if not cfg.get("num_experts"):
+    moe = run.cell.arch.program.moe(run.cell.config)
+    if moe is None:
         return 0
-    K = cfg["num_experts_per_tok"]
+    K = moe.top_k
     tokens: Dict[tuple, int] = {}
     for s in run.rec.steps:
         tokens[(s.round, s.engine)] = s.prefill_tokens + s.decode_tokens
@@ -89,15 +92,18 @@ def routing_numbers(run, seqs: List[dict],
                     routing: List[torch.Tensor]) -> Dict[str, float]:
     """The prefill dispatches whose lanes are all sampled requests: the
     share of their routed slots whose expert differs from the one that
-    ``routing`` (per sequence: (layers, prompt length, top k) expert ids)
-    puts there, and how many prompt tokens they routed."""
+    ``routing`` (per sequence: (routing layers, prompt length, top k)
+    expert ids) puts there, and how many prompt tokens they routed. Only
+    the routing layers count: the dispatch logs a row of B for each, as
+    ``routing`` holds one."""
     by_id = {int(s["req_id"]): r for s, r in zip(seqs, routing)}
-    E = run.cell.config["num_experts"]
+    moe = run.cell.arch.program.moe(run.cell.config)
+    E = moe.experts
     moved = slots = tokens = 0
     for lanes, B in run.rec.prefill_dispatches:
         if not all(rid in by_id for rid, _, _ in lanes):
             continue
-        B = np.asarray(B).reshape(-1, E).astype(np.int64)
+        B = np.asarray(B).reshape(len(moe.layers), E).astype(np.int64)
         ref = np.zeros_like(B)
         for rid, start, chunk in lanes:
             ids = by_id[rid][:, start:start + chunk].numpy()
@@ -128,8 +134,8 @@ def read_numbers(run, device, control: bool = False) -> Dict[str, dict]:
     seqs = sample(run)
     if not seqs:
         return {}
-    gaps = reference.served_gaps(run.cell.config, run.seed, seqs, device,
-                                 control=control)
+    gaps = reference.served_gaps(run.cell.arch.ref, run.cell.config,
+                                 run.seed, seqs, device, control=control)
     out = {}
     for side, routing in (("served", "routing"),
                           ("control", "routing_control")):

@@ -9,12 +9,12 @@ served tokens and prefill dispatches, every reading of both sides
 (``check.read_numbers``): the program's (the gaps by which a served
 token's reference logit lies below the reference's best, the share of
 routed slots on another expert than the reference's router picks) and the
-control's (the same for the tokens and routing of the fp8 forward of
-``reference.py``). Then the control in the program's place is judged by
-the harness's own comparison (``check.judge``), against the cell's
-limits: ``control_correct`` has to come out false. Each limit lies between
-the program's largest reading and the control's smallest. The benchmark's
-own runs do not run the control.
+control's (the same for the tokens and routing of the architecture's fp8
+forward, ``arch/<name>_ref.py`` driven by ``reference.py``). Then the
+control in the program's place is judged by the harness's own comparison
+(``check.judge``), against the cell's limits: ``control_correct`` has to
+come out false. Each limit lies between the program's largest reading and
+the control's smallest. The benchmark's own runs do not run the control.
 """
 import argparse
 import json

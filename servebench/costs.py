@@ -1,6 +1,6 @@
-"""The yardstick's arithmetic: the card's published peaks, the model's
-FLOPs per token, and the operations and bytes of the two kernels whose
-roofline share the benchmark reports.
+"""The yardstick's arithmetic: the card's published peaks, and the
+operations and bytes of the two kernels whose roofline share the benchmark
+reports.
 
 Frozen copies, so that a later change to the program cannot move the
 yardstick:
@@ -13,9 +13,10 @@ yardstick:
 * :func:`paged_decode_cost` from ``repro_torch/kernels/paged_decode.py::
   paged_decode_cost``, over the live lanes only, with the block-table
   entries those lanes use;
-* :func:`model_flops` counts the config's published widths, the routed
-  experts of each token and attention over each token's live context,
-  whatever implements the model.
+* the model FLOPs of a step are each architecture's own formula
+  (``arch/<name>.py`` ``model_flops``): the config's published widths,
+  the routed experts of each token and attention over each token's live
+  context, whatever implements the model.
 """
 from __future__ import annotations
 
@@ -47,30 +48,6 @@ def paged_decode_cost(lanes: int, live: int, blocks: int, Hq: int, Hkv: int,
     nbytes = 2 * lanes * Hq * hd * item + live * Hkv * 2 * hd * item \
         + blocks * 4 + lanes * 4
     return 4 * live * Hq * hd, nbytes
-
-
-def layer_flops(cfg: dict, n_tokens: int, ctx_sum: int) -> int:
-    """FLOPs of one decoder layer over ``n_tokens`` tokens whose live
-    contexts (the token itself included) sum to ``ctx_sum``."""
-    d, hd = cfg["hidden_size"], cfg["head_dim"]
-    hq, hkv = cfg["num_attention_heads"], cfg["num_key_value_heads"]
-    proj = 2 * d * (hq * hd + 2 * hkv * hd) + 2 * hq * hd * d
-    if cfg.get("num_experts"):
-        ffn = 2 * d * cfg["num_experts"] \
-            + cfg["num_experts_per_tok"] * 3 * 2 * d \
-            * cfg["moe_intermediate_size"]
-    else:
-        ffn = 3 * 2 * d * cfg["intermediate_size"]
-    return n_tokens * (proj + ffn) + 4 * ctx_sum * hq * hd
-
-
-def model_flops(cfg: dict, n_tokens: int, ctx_sum: int,
-                n_logits: int) -> int:
-    """FLOPs of the whole model over ``n_tokens`` tokens (contexts summing
-    to ``ctx_sum``), ``n_logits`` of which produce an output token through
-    the LM head."""
-    return cfg["num_hidden_layers"] * layer_flops(cfg, n_tokens, ctx_sum) \
-        + n_logits * 2 * cfg["hidden_size"] * cfg["vocab_size"]
 
 
 def ctx_sum(start: int, n: int) -> int:

@@ -22,15 +22,16 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import sys
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from servebench import costs, gen_traffic
+from servebench import arch, costs, gen_traffic
 from servebench import weights as W
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -42,6 +43,35 @@ def log(msg: str, t_start: float) -> None:
     sys.stderr.write(f"servebench {time.perf_counter() - t_start:8.2f}s "
                      f"{msg}\n")
     sys.stderr.flush()
+
+
+def cpu_model() -> str:
+    """The host's CPU as ``/proc/cpuinfo`` names its first processor: the
+    model name, and the vendor, family and model numbers (a sandbox may
+    name the model "unknown" and still give the numbers)."""
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if not line.strip():
+                    break
+                key, _, value = line.partition(":")
+                fields[key.strip()] = value.strip()
+    except OSError:
+        pass
+    return (f"{fields.get('model name', 'unknown')} "
+            f"({fields.get('vendor_id', '?')} family "
+            f"{fields.get('cpu family', '?')} model "
+            f"{fields.get('model', '?')})")
+
+
+def host_line(cpu: str) -> str:
+    """The host as a run finds it: the CPU, the logical CPUs (and those
+    this process may use) and the load average over 1, 5 and 15 minutes.
+    No metric: it helps explain a host-paced spread."""
+    load = " ".join(f"{x:.2f}" for x in os.getloadavg())
+    return (f"host {cpu}; {os.cpu_count()} logical CPUs, "
+            f"{len(os.sched_getaffinity(0))} usable; load average {load}")
 
 
 class WindowClosed(Exception):
@@ -72,6 +102,7 @@ class Cell:
     end_to_end: List[dict]
     per_layer: List[dict]
     chips: int
+    arch: arch.Arch       # the adapter of the configuration's model_type
 
 
 def _applies(metric: dict, cell: str) -> bool:
@@ -79,17 +110,21 @@ def _applies(metric: dict, cell: str) -> bool:
 
 
 def load_cell(name: str, size: str = "full",
-              spec_path: Path = ROOT / "BENCHMARK.json") -> Cell:
-    """The cell ``name`` of ``BENCHMARK.json``, its configuration and
-    traffic files found by name. ``size="smoke"`` applies each file's
-    ``smoke`` section: the CPU-sized model and traffic of the tests."""
+              spec_path: Path = ROOT / "BENCHMARK.json",
+              arch_dirs: Sequence = ()) -> Cell:
+    """The cell ``name`` of ``BENCHMARK.json``, its configuration (a path
+    relative to the spec's directory) and traffic files found by name, and
+    the architecture adapter of the configuration's ``model_type``.
+    ``size="smoke"`` applies each file's ``smoke`` section: the CPU-sized
+    model and traffic of the tests. ``arch_dirs``: more directories of
+    adapters, for tests."""
     spec = load_json(spec_path)
     cells = {w["name"]: w for w in spec["workloads"]}
     if name not in cells:
         raise KeyError(f"no workload {name!r} in {spec_path.name}")
     w = cells[name]
     cfg_entry = {c["name"]: c for c in spec["configs"]}[w["config"]]
-    cfg = load_json(ROOT / cfg_entry["file"])
+    cfg = load_json(spec_path.parent / cfg_entry["file"])
     traffic = load_json(BENCH / "traffic" / f"{w['traffic']}.json")
     if size == "smoke":
         cfg = merged(cfg, cfg["smoke"])
@@ -98,48 +133,11 @@ def load_cell(name: str, size: str = "full",
                 end_to_end=[m for m in spec["end_to_end"]
                             if _applies(m, name)],
                 per_layer=[m for m in spec["per_layer"] if _applies(m, name)],
-                chips=int(w["chips"]))
+                chips=int(w["chips"]),
+                arch=arch.find(cfg["model_type"], arch_dirs))
 
 
 # ---------------------------------------------------------------- program
-def model_config(cfg: dict):
-    """The port's ``ModelConfig`` for a configuration file."""
-    from repro_torch.configs.base import ModelConfig, MoEConfig
-    moe = MoEConfig()
-    if cfg.get("num_experts"):
-        moe = MoEConfig(n_experts=cfg["num_experts"],
-                        top_k=cfg["num_experts_per_tok"],
-                        d_expert=cfg["moe_intermediate_size"],
-                        moe_every=cfg["decoder_sparse_step"])
-    return ModelConfig(
-        name=cfg["name"], family="moe" if moe.enabled else "dense",
-        n_layers=cfg["num_hidden_layers"], d_model=cfg["hidden_size"],
-        n_heads=cfg["num_attention_heads"],
-        n_kv_heads=cfg["num_key_value_heads"],
-        d_ff=cfg["moe_intermediate_size"] if moe.enabled
-        else cfg["intermediate_size"],
-        vocab_size=cfg["vocab_size"], head_dim=cfg["head_dim"], moe=moe,
-        rope_theta=float(cfg["rope_theta"]), qk_norm=True,
-        norm_eps=float(cfg["rms_norm_eps"]),
-        tie_embeddings=bool(cfg["tie_word_embeddings"]),
-        dtype=cfg["torch_dtype"])
-
-
-# the port's leaf path -> the checkpoint leaf it holds; the port's norms
-# scale by (1 + w), so they hold the checkpoint's weight less one
-_LAYER_MAP = {
-    "ln_attn": "input_layernorm", "attn.wq": "q_proj", "attn.wk": "k_proj",
-    "attn.wv": "v_proj", "attn.wo": "o_proj", "attn.q_norm": "q_norm",
-    "attn.k_norm": "k_norm", "ln_ffn": "post_attention_layernorm",
-    "moe.router": "router", "moe.w_gate": "experts.gate_proj",
-    "moe.w_up": "experts.up_proj", "moe.w_down": "experts.down_proj",
-    "mlp.w_gate": "mlp.gate_proj", "mlp.w_up": "mlp.up_proj",
-    "mlp.w_down": "mlp.down_proj",
-}
-_MODEL_MAP = {"embed.embedding": "embed_tokens", "embed.lm_head": "lm_head",
-              "final_norm": "norm"}
-
-
 def _flat(tree, prefix=""):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -148,43 +146,48 @@ def _flat(tree, prefix=""):
             yield f"{prefix}{k}", v
 
 
-def program_params(cfg: dict, mcfg, seed: int, device):
+def program_params(adapter: arch.Arch, cfg: dict, mcfg, seed: int, device):
     """The benchmark's weights in the port's tree: the leaf layout from
     the port's own ``init_params`` on the ``meta`` device (shapes and
-    types only, nothing drawn), every value from :mod:`weights`."""
+    types only, nothing drawn), every value from :mod:`weights` under the
+    checkpoint leaf and layer that the adapter maps to it
+    (``checkpoint_leaves``). A leaf the adapter does not map, or does not
+    cover, is refused."""
     from repro_torch.models import transformer as tfm
     meta = tfm.init_params(mcfg, generator=torch.Generator(), device="meta")
-    if list(meta["blocks"]) != ["pos0"]:
-        raise ValueError(f"{mcfg.name}: expected one layer per period")
-    layer_specs, model_specs = W.layer_leaves(cfg), W.model_leaves(cfg)
-
-    def fill(leaf, name, layers, specs):
-        out = torch.empty(leaf.shape, dtype=leaf.dtype, device=device)
-        for i, layer in enumerate(layers):
-            x = W.draw(seed, name, layer, specs[name], device)
-            if specs[name][1] == "norm":
-                x = x - 1.0
-            if tuple(x.shape) != tuple(out.shape[1:] if layers != [-1]
-                                       else out.shape):
-                raise ValueError(f"{name}: the port holds "
-                                 f"{tuple(leaf.shape)}, the checkpoint "
-                                 f"{tuple(x.shape)}")
-            (out[i] if layers != [-1] else out).copy_(x)
-            del x
-        return out
-
+    period = len(meta.get("blocks", {}))
     tree: Dict = {}
     for path, leaf in _flat(meta):
-        if path.startswith("blocks.pos0."):
-            name = _LAYER_MAP[path[len("blocks.pos0."):]]
-            val = fill(leaf, name, list(range(leaf.shape[0])), layer_specs)
-        else:
-            val = fill(leaf, _MODEL_MAP[path], [-1], model_specs)
+        shape = tuple(leaf.shape)
+        try:
+            slots = adapter.program.checkpoint_leaves(path, shape, period)
+        except KeyError:
+            raise ValueError(f"{mcfg.name}: the adapter {adapter.name} "
+                             f"maps no checkpoint leaf to the port's "
+                             f"{path}") from None
+        index = [s.index for s in slots]
+        if index != [None] and (None in index or sorted(index) != list(
+                range(shape[0] if shape else 0))):
+            raise ValueError(f"{mcfg.name}: the adapter {adapter.name} "
+                             f"does not cover the port's {path} {shape}")
+        out = torch.empty(shape, dtype=leaf.dtype, device=device)
+        for s in slots:
+            dst = out if s.index is None else out[s.index]
+            x = W.draw(seed, s.name, s.layer,
+                       adapter.ref.leaves(cfg, s.layer)[s.name], device)
+            if s.transform is not None:
+                x = s.transform(x)
+            if x.shape != dst.shape:
+                raise ValueError(f"{s.name}: the port holds "
+                                 f"{tuple(dst.shape)}, the checkpoint "
+                                 f"{tuple(x.shape)}")
+            dst.copy_(x)
+            del x
         node = tree
         keys = path.split(".")
         for k in keys[:-1]:
             node = node.setdefault(k, {})
-        node[keys[-1]] = val
+        node[keys[-1]] = out
     return tree
 
 
@@ -524,8 +527,8 @@ def setup_program(cell: Cell, seed: int, device: str,
     if device == "cuda":
         log(f"built the kernels in {ops.build():.2f}s", t_start)
         torch.cuda.reset_peak_memory_stats()
-    mcfg = model_config(cfg)
-    params = program_params(cfg, mcfg, seed, device)
+    mcfg = cell.arch.program.model_config(cfg)
+    params = program_params(cell.arch, cfg, mcfg, seed, device)
     if device == "cuda":
         torch.cuda.synchronize()
     log("weights made", t_start)
@@ -571,10 +574,13 @@ def serve(cell: Cell, prog: Program, seed: int, seconds: float,
         rec.reqs[q.req_id] = ReqRecord(
             due_round=max(0, math.ceil(t.arrival_round - 1e-9)),
             prompt_len=q.prompt_len)
+    cpu = cpu_model()
+    # the host before the ramp, and again after the window has closed
+    log("ramp begins: " + host_line(cpu), t_start)
     try:
         serve_real_cluster(reqs, engines, cluster_cfg=prog.ccfg)
     except WindowClosed:
-        pass
+        log("window closed: " + host_line(cpu), t_start)
     else:
         raise RuntimeError("the serve ended before the window closed: "
                            "raise horizon_rounds")

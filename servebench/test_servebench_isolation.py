@@ -1,5 +1,6 @@
 """Nothing the benchmark runs loads JAX or the JAX package, and the
-reference loads nothing of the program.
+reference, the weights and each architecture's reference side load nothing
+of the program.
 
 Each check runs in a fresh interpreter: the test process itself may hold
 JAX from other test files. Top-level module names are compared whole (the
@@ -8,6 +9,8 @@ import json
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -36,6 +39,8 @@ import importlib.util, pathlib
 for p in sorted(pathlib.Path("servebench").glob("*.py")):
     if not p.name.startswith("test_"):
         __import__("servebench." + p.stem)
+for p in sorted(pathlib.Path("servebench/arch").glob("[!_]*.py")):
+    __import__("servebench.arch." + p.stem)
 """
     mods = _modules_after(code)
     assert "repro_torch" in mods and "servebench" in mods
@@ -44,4 +49,16 @@ for p in sorted(pathlib.Path("servebench").glob("*.py")):
 
 def test_the_reference_loads_nothing_of_the_program():
     mods = _modules_after("from servebench import reference, weights")
+    assert not mods & {"repro_torch", "repro", "jax", "jaxlib", "flax"}
+
+
+REFERENCE_SIDE = ["servebench.weights"] + [
+    f"servebench.arch.{p.stem}"
+    for p in sorted((ROOT / "servebench" / "arch").glob("*_ref.py"))]
+
+
+@pytest.mark.parametrize("module", REFERENCE_SIDE)
+def test_each_reference_side_loads_nothing_of_the_program(module):
+    """``weights.py`` and every adapter's reference side, each alone."""
+    mods = _modules_after(f"import {module}")
     assert not mods & {"repro_torch", "repro", "jax", "jaxlib", "flax"}

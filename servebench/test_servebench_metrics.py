@@ -48,8 +48,8 @@ def _run(stall_round=None, stall_s=2.0, n_rounds=40, n_req=12):
                 s.decode_ctx += 100 + q.seen
                 s.logits += 1
         rec.steps.append(s)
-    cell = types.SimpleNamespace(config=harness.load_cell(
-        "qwen3moe_burst_prefill").config)
+    c = harness.load_cell("qwen3moe_burst_prefill")
+    cell = types.SimpleNamespace(config=c.config, arch=c.arch)
     return harness.Run(cell=cell, seed=0, device="cpu", rec=rec,
                        setup_s=1.0, served={})
 
